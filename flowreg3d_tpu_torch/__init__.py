@@ -1,9 +1,11 @@
 """flowreg3d_tpu_torch — the PyTorch + CUDA port of flowreg3d_tpu.
 
 Dense 3D variational optical flow (coarse-to-fine pyramid + red-black SOR
-solver) and backward warping, written in PyTorch with hand-written CUDA
-kernels for the SOR half-sweep, the B-spline sampling and the 5^3 median
-(``csrc/``). The layouts are the JAX package's:
+solver, constant or flow-driven diffusivity), backward warping and the
+in-memory motion-correction pipeline (``flowreg3d_tpu_torch.pipeline``),
+written in PyTorch with hand-written CUDA kernels for the SOR half-sweeps,
+the diffusivity field, the B-spline sampling and the 5^3 median (``csrc/``).
+The layouts are the JAX package's:
 
   single volume  (Z, Y, X, C)
   flow field     (Z, Y, X, 3) with last axis [dx(u), dy(v), dz(w)]

@@ -1,17 +1,22 @@
 """What carries across from the JAX package.
 
 This system has no weights. Its state is the flow configuration (the
-JAX package's ``pyramid_config_key`` tuple) and the per-frame arrays:
-fixed and moving volumes (Z,Y,X,C), the initial flow ``uvw`` (Z,Y,X,3)
-that the pipeline chains from frame to frame, and the data weight
-(Z,Y,X,C). Both helpers take plain Python / numpy values, so they need
+JAX package's ``pyramid_config_key`` tuple), the pipeline's options (its
+``OFOptions``) and the per-frame arrays: fixed and moving volumes
+(Z,Y,X,C), the initial flow ``uvw`` (Z,Y,X,3) that the pipeline chains from
+frame to frame, and the data weight (Z,Y,X,C). The helpers read plain
+Python / numpy values (attributes, in the options' case), so they import
 nothing of the JAX package.
 """
+
+import dataclasses
+from enum import Enum
 
 import numpy as np
 import torch
 
 from flowreg3d_tpu_torch._device import resolve_device
+from flowreg3d_tpu_torch.pipeline.of_options import OFOptions, QualitySetting
 
 _JAX_KEY_FIELDS = 13
 _DTYPES = ("float32", "float64")
@@ -53,3 +58,18 @@ def arrays_to_torch(fixed, moving, uvw, weight, device=None):
                              f"{a.shape}")
         out.append(torch.from_numpy(np.ascontiguousarray(a)).to(dev))
     return tuple(out)
+
+
+def options_from_jax(jax_options):
+    """The port's ``OFOptions`` with every field of a JAX ``OFOptions``
+    (enums by value; the open reader/writer are not carried)."""
+    kwargs = {}
+    for f in dataclasses.fields(OFOptions):
+        if f.init:
+            v = getattr(jax_options, f.name)
+            kwargs[f.name] = v.value if isinstance(v, Enum) else v
+    out = OFOptions(**kwargs)
+    old = getattr(jax_options, "_quality_setting_old", None)
+    if old is not None:
+        out._quality_setting_old = QualitySetting(old.value)
+    return out

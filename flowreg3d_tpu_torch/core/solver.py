@@ -12,65 +12,27 @@ Two formulations:
   the base flow's Laplacian folded into the data terms: the CUDA kernel
   on CUDA tensors, its plain version on CPU tensors or with
   ``use_kernels=False``;
-- ``a_smooth != 1``: the JAX package's XLA formulation, unfolded, in
-  plain PyTorch (``half_sweep``). On CUDA it runs only with
-  ``use_kernels=False``: its kernel (the psi sweep) is not ported yet.
+- ``a_smooth != 1``: per tick block, ``tick_update``, then ``update_lag``
+  psi -> red -> black iterations of ``core/solver_psi_kernel.py`` on the
+  unfolded base flow (the JAX package's XLA scheme: psi from the pre-red
+  increments, reused for black), the CUDA kernels on CUDA tensors and
+  their plain versions on CPU tensors or with ``use_kernels=False``.
+
+Neither sweep writes the increments' ring; ``set_boundary_3d`` sets it on
+the result.
 """
 
 import numpy as np
 import torch
 
-from flowreg3d_tpu_torch.core.solver_kernel import (_parity_mask,
-                                                    _scalar_type,
+from flowreg3d_tpu_torch.core.solver_kernel import (_scalar_type,
                                                     base_laplacian, fold_base,
                                                     sweep_iterations)
+from flowreg3d_tpu_torch.core.solver_psi_kernel import (psi_params,
+                                                        set_boundary_3d,
+                                                        sweep_iterations_psi)
 
-OMEGA = 1.95
 EPS_PSI = 1e-6
-EPS_SMOOTH = 1e-5
-
-_I = (slice(1, -1),) * 3
-
-
-def set_boundary_3d(f):
-    """Neumann copy boundaries, in place on ``f``; returns ``f``."""
-    f[:, 0, :] = f[:, 1, :]
-    f[:, -1, :] = f[:, -2, :]
-    f[:, :, 0] = f[:, :, 1]
-    f[:, :, -1] = f[:, :, -2]
-    f[0] = f[1]
-    f[-1] = f[-2]
-    return f
-
-
-def _psi_smooth_field(u, du, v, dv, w, dw, a, hx, hy, hz):
-    """Flow-driven diffusivity a*(|grad(u+du,v+dv,w+dw)|^2+eps)^(a-1), with
-    clamped-index central differences over the full grid."""
-    def cgrad(f, axis, h):
-        n = f.shape[axis]
-        fp = torch.cat([f.narrow(axis, 1, n - 1), f.narrow(axis, n - 1, 1)],
-                       dim=axis)
-        fm = torch.cat([f.narrow(axis, 0, 1), f.narrow(axis, 0, n - 1)],
-                       dim=axis)
-        return (fp - fm) / (2.0 * h)
-
-    g = torch.zeros_like(u)
-    for comp, dcomp in ((u, du), (v, dv), (w, dw)):
-        cc = comp + dcomp
-        for axis, h in ((0, hz), (1, hy), (2, hx)):
-            d = cgrad(cc, axis, h)
-            g = g + d * d
-    g = torch.clamp(g, min=0.0)
-    return a * (g + EPS_SMOOTH) ** (a - 1.0)
-
-
-def _nbr(f):
-    """Six neighbour views of the interior of a full-grid tensor."""
-    return dict(
-        xm=f[1:-1, 1:-1, :-2], xp=f[1:-1, 1:-1, 2:],
-        ym=f[1:-1, :-2, 1:-1], yp=f[1:-1, 2:, 1:-1],
-        zm=f[:-2, 1:-1, 1:-1], zp=f[2:, 1:-1, 1:-1],
-    )
 
 
 def tick_update(Jc, weight, a_data, du, dv, dw):
@@ -95,71 +57,31 @@ def tick_update(Jc, weight, a_data, du, dv, dw):
                  for J in (J11, J22, J33, J12, J13, J23, J14, J24, J34))
 
 
-def half_sweep(mask, du, dv, dw, u, v, w, SJ, sw):
-    """One masked half-sweep over the unfolded base + increment stencil;
-    returns new (du, dv, dw) with Neumann rings applied."""
-    SJ11, SJ22, SJ33, SJ12, SJ13, SJ23, SJ14, SJ24, SJ34 = SJ
-    duI, dvI, dwI = du[_I], dv[_I], dw[_I]
-    nu_data = -(SJ14[_I] + SJ12[_I] * dvI + SJ13[_I] * dwI)
-    nv_data = -(SJ24[_I] + SJ12[_I] * duI + SJ23[_I] * dwI)
-    nw_data = -(SJ34[_I] + SJ13[_I] * duI + SJ23[_I] * dvI)
-    sw_sum = sw["xm"] + sw["xp"] + sw["ym"] + sw["yp"] + sw["zm"] + sw["zp"]
-
-    def sweep_component(base, inc, num_data, den_data, old):
-        # per direction: w * (base_nbr + inc_nbr - base_ctr); the centre
-        # unknown appears only in the denominator
-        nb = _nbr(base + inc)
-        baseI = base[_I]
-        num = num_data
-        for k in ("xm", "xp", "ym", "yp", "zm", "zp"):
-            num = num + sw[k] * (nb[k] - baseI)
-        den = den_data + sw_sum
-        frac = torch.where(den != 0, num / den, torch.zeros_like(den))
-        new = (1.0 - OMEGA) * old + OMEGA * frac
-        return torch.where(mask, new, old)
-
-    out = []
-    for base, inc, num_data, den_data, old in (
-            (u, du, nu_data, SJ11[_I], duI), (v, dv, nv_data, SJ22[_I], dvI),
-            (w, dw, nw_data, SJ33[_I], dwI)):
-        new = sweep_component(base, inc, num_data, den_data, old)
-        f = inc.clone()
-        f[_I] = new
-        out.append(set_boundary_3d(f))
-    return tuple(out)
+def _blocks(iterations, update_lag):
+    """Iteration counts of the tick blocks: psi_data is re-linearised every
+    ``update_lag`` iterations."""
+    n_full, rem = divmod(int(iterations), int(update_lag))
+    return [int(update_lag)] * n_full + ([rem] if rem else [])
 
 
-def _smooth_weights(u, v, w, du, dv, dw, a_smooth, ax, ay, az, hx, hy, hz):
-    psi = _psi_smooth_field(u, du, v, dv, w, dw, a_smooth, hx, hy, hz)
-    psiC = psi[_I]
-    nb = _nbr(psi)
-    scale = dict(xm=ax, xp=ax, ym=ay, yp=ay, zm=az, zp=az)
-    return {k: 0.5 * (psiC + nb[k]) * scale[k] for k in scale}
-
-
-def _solve_unfolded(Jc, weight, a_vec, u, v, w, a_smooth, ax, ay, az, hx, hy,
-                 hz, iterations, update_lag):
-    red = _parity_mask(*u.shape, 0, u.device)
-    black = ~red
-    du, dv, dw = (torch.zeros_like(u) for _ in range(3))
-    SJ = None
-    for it in range(iterations):
-        if it % update_lag == 0:
-            SJ = tick_update(Jc, weight, a_vec, du, dv, dw)
-        du, dv, dw = (set_boundary_3d(f) for f in (du, dv, dw))
-        sw = _smooth_weights(u, v, w, du, dv, dw, a_smooth, ax, ay, az,
-                             hx, hy, hz)
-        du, dv, dw = half_sweep(red, du, dv, dw, u, v, w, SJ, sw)
-        du, dv, dw = half_sweep(black, du, dv, dw, u, v, w, SJ, sw)
-    return du, dv, dw
+def _solve_psi(Jc, weight, a_vec, u, v, w, a_smooth, ax, ay, az, hx, hy, hz,
+               iterations, update_lag, use_kernels):
+    base = torch.stack([u, v, w])
+    duvw = torch.zeros_like(base)
+    psi = torch.empty_like(u)
+    params = psi_params(a_smooth, hx, hy, hz, u.dtype) + (ax, ay, az)
+    for k_iters in _blocks(iterations, update_lag):
+        SJ = tick_update(Jc, weight, a_vec, duvw[0], duvw[1], duvw[2])
+        sweep_iterations_psi(duvw, base, torch.stack(SJ), params, k_iters,
+                             use_kernels, psi)
+    return tuple(set_boundary_3d(duvw[k].clone()) for k in range(3))
 
 
 def _solve_folded(Jc, weight, a_vec, u, v, w, ax, ay, az, iterations,
                   update_lag, use_kernels):
     laps = [base_laplacian(b, ax, ay, az) for b in (u, v, w)]
     duvw = torch.zeros((3,) + tuple(u.shape), dtype=u.dtype, device=u.device)
-    n_full, rem = divmod(int(iterations), int(update_lag))
-    for k_iters in [update_lag] * n_full + ([rem] if rem else []):
+    for k_iters in _blocks(iterations, update_lag):
         SJ = tick_update(Jc, weight, a_vec, duvw[0], duvw[1], duvw[2])
         sweep_iterations(duvw, fold_base(SJ, laps), ax, ay, az, k_iters,
                          use_kernels)
@@ -191,13 +113,8 @@ def compute_flow_level_cl(J_entries, weight, u, v, w, alpha, iterations,
     if a_smooth == 1.0:
         return _solve_folded(Jc, weight, a_vec, u, v, w, ax, ay, az,
                              iterations, update_lag, use_kernels)
-    if use_kernels and device.type == "cuda":
-        raise NotImplementedError(
-            "a_smooth != 1 (flow-driven diffusivity) has no CUDA kernel yet: "
-            "ROADMAP.md Queue 2 item 5 (solver_pallas.py:_sweep_kernel_psi). "
-            "Pass use_kernels=False to run the plain PyTorch solver.")
-    return _solve_unfolded(Jc, weight, a_vec, u, v, w, a_smooth, ax, ay, az,
-                        hx, hy, hz, iterations, update_lag)
+    return _solve_psi(Jc, weight, a_vec, u, v, w, a_smooth, ax, ay, az, hx,
+                      hy, hz, iterations, update_lag, use_kernels)
 
 
 def compute_flow_level(J_entries, weight, u, v, w, alpha, iterations,

@@ -1,0 +1,233 @@
+"""Flow-driven-diffusivity SOR sweeps: the CUDA kernels of csrc/sor_psi.cu,
+their plain PyTorch versions, and the host loop.
+
+Counterpart of ``flowreg3d_tpu/core/solver_pallas.py``:
+``sweep_iterations_pallas_psi`` (and its y-tiled ``_sweep_iterations_psi_ty``)
+is ``sweep_iterations_psi``; ``halfsweep_pallas_psi`` is ``halfsweep_psi``;
+``halfsweep_pallas`` (one ``a_smooth == 1`` half-sweep on the unfolded
+base) is ``halfsweep``. Fields are stacked: the increments ``duvw`` and the
+base flow ``base`` (3,P,M,N), the data terms ``sj`` (9,P,M,N) in the order
+[SJ11,SJ22,SJ33,SJ12,SJ13,SJ23,SJ14,SJ24,SJ34], the diffusivity ``psi``
+(P,M,N). One iteration is ``psi_field`` from the pre-red increments, then
+the red and the black half-sweep with that psi.
+
+No kernel writes the increments' ring: ``psi_field`` reads the increments at
+per-axis clamped indices and the half-sweeps take ``base_ghost + inc_centre``
+across a Neumann face, which is what ``set_boundary_3d`` would have put
+there. The caller applies ``set_boundary_3d`` to the result.
+
+Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
+it launches its kernel or raises, and counts the launch.
+"""
+
+import torch
+
+from flowreg3d_tpu_torch import _ext
+from flowreg3d_tpu_torch.core.solver_kernel import _parity_mask, _scalar_type
+
+OMEGA = 1.95
+EPS_SMOOTH = 1e-5
+
+_I = (slice(1, -1),) * 3
+_DIRS = ("xm", "xp", "ym", "yp", "zm", "zp")
+
+
+def set_boundary_3d(f):
+    """Neumann copy boundaries over the last three axes, in place on ``f``
+    ((P,M,N) or a (K,P,M,N) stack); returns ``f``."""
+    f[..., 0, :] = f[..., 1, :]
+    f[..., -1, :] = f[..., -2, :]
+    f[..., :, 0] = f[..., :, 1]
+    f[..., :, -1] = f[..., :, -2]
+    f[..., 0, :, :] = f[..., 1, :, :]
+    f[..., -1, :, :] = f[..., -2, :, :]
+    return f
+
+
+def psi_params(a_smooth, hx, hy, hz, dtype=torch.float32):
+    """(a, a - 1, 0.5/hx, 0.5/hy, 0.5/hz), rounded in ``dtype`` as the
+    kernel receives them."""
+    t = _scalar_type(dtype)
+    a = t(a_smooth)
+    return (float(a), float(a - t(1.0)),
+            *(float(t(0.5) / t(h)) for h in (hx, hy, hz)))
+
+
+def _nbr(f):
+    """Six neighbour views of the interior of a full-grid (P,M,N) tensor."""
+    return dict(
+        xm=f[1:-1, 1:-1, :-2], xp=f[1:-1, 1:-1, 2:],
+        ym=f[1:-1, :-2, 1:-1], yp=f[1:-1, 2:, 1:-1],
+        zm=f[:-2, 1:-1, 1:-1], zp=f[2:, 1:-1, 1:-1],
+    )
+
+
+def _clamped_shift(f, axis, step):
+    """f at index i + step along ``axis``, the index clamped to the grid."""
+    n = f.shape[axis]
+    if step > 0:
+        return torch.cat([f.narrow(axis, 1, n - 1), f.narrow(axis, n - 1, 1)],
+                         dim=axis)
+    return torch.cat([f.narrow(axis, 0, 1), f.narrow(axis, 0, n - 1)],
+                     dim=axis)
+
+
+def psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out=None):
+    """Plain version of ``psi_field_f32``: a * (|grad(base + inc)|^2 + eps)
+    ^ (a - 1) over the full grid, inc read with its ring set by
+    ``set_boundary_3d``; rsqrt when a - 1 == -0.5."""
+    tot = base + set_boundary_3d(duvw.clone())
+    g = torch.zeros_like(tot[0])
+    for c in range(3):
+        for axis, ih in ((0, ihz), (1, ihy), (2, ihx)):
+            d = (_clamped_shift(tot[c], axis, 1)
+                 - _clamped_shift(tot[c], axis, -1)) * ih
+            g = g + d * d
+    s = g + EPS_SMOOTH
+    psi = a * (torch.rsqrt(s) if expo == -0.5 else torch.pow(s, expo))
+    if out is None:
+        return psi
+    return out.copy_(psi)
+
+
+def _halfsweep_plain(duvw, base, sj, weights, sw_sum, parity):
+    """One masked half-sweep in place on the interior of ``duvw``; weights
+    and sw_sum are tensors over the interior or Python floats."""
+    tot = base + set_boundary_3d(duvw.clone())
+    c = duvw[(slice(None),) + _I]
+    s = sj[(slice(None),) + _I]
+    du, dv, dw = c[0], c[1], c[2]
+    num_data = (-(s[6] + s[3] * dv + s[4] * dw),
+                -(s[7] + s[3] * du + s[5] * dw),
+                -(s[8] + s[4] * du + s[5] * dv))
+    new = []
+    for k, old in enumerate((du, dv, dw)):
+        nb = _nbr(tot[k])
+        base_c = base[k][_I]
+        num = num_data[k]
+        for d in _DIRS:
+            num = num + weights[d] * (nb[d] - base_c)
+        den = s[k] + sw_sum
+        frac = torch.where(den != 0, num / den, torch.zeros_like(den))
+        new.append((1.0 - OMEGA) * old + OMEGA * frac)
+    mask = _parity_mask(*duvw.shape[1:], parity, duvw.device)
+    c.copy_(torch.where(mask, torch.stack(new), c))
+    return duvw
+
+
+def halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, parity):
+    """Plain version of ``sor_halfsweep_psi_f32``: weights
+    0.5 (psi_c + psi_nbr) a_dir."""
+    pc = psi[_I]
+    nb = _nbr(psi)
+    scale = dict(xm=ax, xp=ax, ym=ay, yp=ay, zm=az, zp=az)
+    weights = {d: 0.5 * (pc + nb[d]) * scale[d] for d in _DIRS}
+    sw_sum = weights["xm"]
+    for d in _DIRS[1:]:
+        sw_sum = sw_sum + weights[d]
+    return _halfsweep_plain(duvw, base, sj, weights, sw_sum, parity)
+
+
+def halfsweep_plain(duvw, base, sj, ax, ay, az, parity):
+    """Plain version of ``sor_halfsweep_const_f32``: weights a_dir."""
+    t = _scalar_type(duvw.dtype)
+    weights = dict(xm=ax, xp=ax, ym=ay, yp=ay, zm=az, zp=az)
+    sw_sum = t(ax)
+    for d in _DIRS[1:]:
+        sw_sum = sw_sum + t(weights[d])
+    return _halfsweep_plain(duvw, base, sj, weights, float(sw_sum), parity)
+
+
+def _check_stacks(name, duvw, base, sj=None, psi=None):
+    tensors = [t for t in (duvw, base, sj, psi) if t is not None]
+    if any(t.device != duvw.device for t in tensors):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}"
+                         "; want one device")
+    if duvw.device.type == "cpu":
+        return False
+    _ext.check_cuda(duvw, f"{name} duvw", 4, torch.float32)
+    _ext.check_cuda(base, f"{name} base", 4, torch.float32)
+    if sj is not None:
+        _ext.check_cuda(sj, f"{name} sj", 4, torch.float32)
+    if psi is not None:
+        _ext.check_cuda(psi, f"{name} psi", 3, torch.float32)
+    _, P, M, N = duvw.shape
+    if (duvw.shape[0] != 3 or base.shape != duvw.shape
+            or (sj is not None and sj.shape != (9, P, M, N))
+            or (psi is not None and psi.shape != (P, M, N))
+            or min(P, M, N) < 3):
+        raise ValueError(
+            f"{name}: duvw {tuple(duvw.shape)}, base {tuple(base.shape)}, sj "
+            f"{None if sj is None else tuple(sj.shape)}, psi "
+            f"{None if psi is None else tuple(psi.shape)}; want (3,P,M,N), "
+            "(3,P,M,N), (9,P,M,N), (P,M,N), P,M,N >= 3")
+    return True
+
+
+def psi_field(duvw, base, a, expo, ihx, ihy, ihz, out=None):
+    """Diffusivity psi (P,M,N) of base + duvw; into ``out`` when given."""
+    if not _check_stacks("psi_field", duvw, base, psi=out):
+        return psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out)
+    _, P, M, N = duvw.shape
+    if out is None:
+        out = torch.empty((P, M, N), dtype=duvw.dtype, device=duvw.device)
+    with torch.cuda.device(duvw.device):
+        rc = _ext.lib().psi_field_f32(
+            duvw.data_ptr(), base.data_ptr(), out.data_ptr(), P, M, N,
+            float(a), float(expo), float(ihx), float(ihy), float(ihz),
+            _ext.stream_of(duvw))
+    _ext.raise_on_error(rc, "psi_field_f32")
+    psi_field.launches += 1
+    return out
+
+
+def halfsweep_psi(duvw, base, sj, psi, ax, ay, az, parity):
+    """One red (parity 0) or black (1) psi half-sweep, in place on duvw."""
+    if not _check_stacks("halfsweep_psi", duvw, base, sj, psi):
+        return halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, parity)
+    _, P, M, N = duvw.shape
+    with torch.cuda.device(duvw.device):
+        rc = _ext.lib().sor_halfsweep_psi_f32(
+            duvw.data_ptr(), base.data_ptr(), sj.data_ptr(), psi.data_ptr(),
+            P, M, N, float(ax), float(ay), float(az), int(parity),
+            _ext.stream_of(duvw))
+    _ext.raise_on_error(rc, "sor_halfsweep_psi_f32")
+    halfsweep_psi.launches += 1
+    return duvw
+
+
+def halfsweep(duvw, base, sj, ax, ay, az, parity):
+    """One constant-weight (a_smooth == 1) half-sweep on the unfolded base,
+    in place on duvw."""
+    if not _check_stacks("halfsweep", duvw, base, sj):
+        return halfsweep_plain(duvw, base, sj, ax, ay, az, parity)
+    _, P, M, N = duvw.shape
+    with torch.cuda.device(duvw.device):
+        rc = _ext.lib().sor_halfsweep_const_f32(
+            duvw.data_ptr(), base.data_ptr(), sj.data_ptr(), P, M, N,
+            float(ax), float(ay), float(az), int(parity),
+            _ext.stream_of(duvw))
+    _ext.raise_on_error(rc, "sor_halfsweep_const_f32")
+    halfsweep.launches += 1
+    return duvw
+
+
+psi_field.launches = 0
+halfsweep_psi.launches = 0
+halfsweep.launches = 0
+
+
+def sweep_iterations_psi(duvw, base, sj, params, n_iters, use_kernels=True,
+                         psi=None):
+    """``n_iters`` psi -> red -> black iterations in place on ``duvw``: 3
+    launches an iteration (``use_kernels=False``: the plain versions on any
+    device). params: psi_params(...) + (ax, ay, az); ``psi`` an optional
+    (P,M,N) buffer for the diffusivity."""
+    a, expo, ihx, ihy, ihz, ax, ay, az = params
+    field = psi_field if use_kernels else psi_field_plain
+    sweep = halfsweep_psi if use_kernels else halfsweep_psi_plain
+    for _ in range(n_iters):
+        psi = field(duvw, base, a, expo, ihx, ihy, ihz, out=psi)
+        sweep(duvw, base, sj, psi, ax, ay, az, 0)
+        sweep(duvw, base, sj, psi, ax, ay, az, 1)
+    return duvw

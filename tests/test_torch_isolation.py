@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX, the JAX package nor
+pydantic, and its entry points (the pipeline's included) run on CUDA unless
+the caller asks for the CPU."""
 
 import re
 import subprocess
@@ -27,15 +28,26 @@ flow = ft.get_displacement(fixed, moving, alpha=(1.5,) * 3, update_lag=2,
 reg = ft.imregister_wrapper(moving, flow[..., 0], flow[..., 1], flow[..., 2],
                             fixed, device="cpu")
 assert tuple(flow.shape) == (8, 20, 20, 3) and bool(reg.isfinite().all())
+flow = ft.get_displacement(fixed, moving, iterations=2, update_lag=1,
+                           levels=2, device="cpu")      # a_smooth 0.5
+assert bool(flow.isfinite().all())
+from flowreg3d_tpu_torch.pipeline import OFOptions, compensate_arr
+opts = OFOptions(iterations=2, update_lag=1, levels=2, min_level=0,
+                 a_smooth=0.5, weight=[1.0])
+reg, w = compensate_arr(np.stack([fixed, moving]), fixed, options=opts,
+                        device="cpu")
+assert reg.shape == (2, 8, 20, 20) and w.shape == (2, 8, 20, 20, 3)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flowreg3d_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flowreg3d_tpu",
+                                    "pydantic"))
 print("LOADED", bad)
 """
 
-# an import of jax or of the JAX package (flowreg3d_tpu, not
-# flowreg3d_tpu_torch) at any indentation
+# an import of jax, of the JAX package (flowreg3d_tpu, not
+# flowreg3d_tpu_torch) or of pydantic, at any indentation
 _IMPORT = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|flowreg3d_tpu)(\.|\s|$)", re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|flowreg3d_tpu|pydantic)(\.|\s|$)",
+    re.M)
 
 
 def test_import_and_cpu_step_load_no_jax():
@@ -59,6 +71,10 @@ def test_default_device_is_cuda_and_raises_without_it():
     key = ft.pyramid_config_key((8, 12, 12), 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         ft.build_pyramid(*key)
+    from flowreg3d_tpu_torch.pipeline import OFOptions, compensate_arr
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compensate_arr(vol[None], vol, OFOptions(weight=[1.0]))
 
 
 def test_no_jax_imports_in_port_sources():

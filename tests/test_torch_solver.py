@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from flowreg3d_tpu.core.solver import _solve
 
 from flowreg3d_tpu_torch.core import solver as tsolver
-from flowreg3d_tpu_torch.core import solver_kernel
+from flowreg3d_tpu_torch.core import solver_kernel, solver_psi_kernel
 
 torch.set_num_threads(1)
 
@@ -72,28 +72,27 @@ def test_whole_level(shape, C):
 
 def test_folded_halfsweep_equals_unfolded():
     """Kernel formulation (base Laplacian folded into SJ14/24/34, clamped
-    Neumann faces) == the unfolded half-sweep with ring copies, float64."""
+    Neumann faces) == the unfolded constant-weight half-sweep with ring
+    copies (``solver_psi_kernel.halfsweep``), float64."""
     J, weight, u, v, w = (torch.from_numpy(a.astype(np.float64))
                           for a in _inputs(seed=2))
     rng = np.random.default_rng(3)
-    du, dv, dw = (torch.from_numpy(rng.random(u.shape) * 0.1)
-                  for _ in range(3))
-    du, dv, dw = (tsolver.set_boundary_3d(f) for f in (du, dv, dw))
+    duvw = torch.from_numpy(rng.random((3,) + tuple(u.shape)) * 0.1)
+    tsolver.set_boundary_3d(duvw)
     a_vec = torch.tensor([0.45], dtype=torch.float64)
-    SJ = tsolver.tick_update(J, weight, a_vec, du, dv, dw)
+    SJ = tsolver.tick_update(J, weight, a_vec, *duvw)
     ax, ay, az = 1.5, 1.2, 0.8
-    sw = dict(xm=ax, xp=ax, ym=ay, yp=ay, zm=az, zp=az)
     laps = [solver_kernel.base_laplacian(b, ax, ay, az) for b in (u, v, w)]
     sj = solver_kernel.fold_base(SJ, laps)
-    duvw = torch.stack([du, dv, dw])
+    base, sj_unfolded = torch.stack([u, v, w]), torch.stack(SJ)
+    unfolded = duvw.clone()
     for parity in (0, 1):
-        mask = solver_kernel._parity_mask(*u.shape, parity, u.device)
-        du, dv, dw = tsolver.half_sweep(mask, du, dv, dw, u, v, w, SJ, sw)
+        solver_psi_kernel.halfsweep(unfolded, base, sj_unfolded, ax, ay, az,
+                                    parity)
         solver_kernel.sor_halfsweep(duvw, sj, ax, ay, az, parity)
-        for k, f in enumerate((du, dv, dw)):
-            torch.testing.assert_close(duvw[k, 1:-1, 1:-1, 1:-1],
-                                       f[1:-1, 1:-1, 1:-1], rtol=1e-12,
-                                       atol=1e-12)
+        torch.testing.assert_close(duvw[:, 1:-1, 1:-1, 1:-1],
+                                   unfolded[:, 1:-1, 1:-1, 1:-1], rtol=1e-12,
+                                   atol=1e-12)
 
 
 def test_cpu_sweeps_count_no_launch():
