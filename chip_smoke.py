@@ -9,27 +9,32 @@ Run from the root of a checkout on a machine with an NVIDIA card:
                                        # one warm canonical and one warm
                                        # direct-API step, written under
                                        # chiprun_out/
+    python3 chip_smoke.py --ab PARENT  # only: time this checkout against
+                                       # an unpacked parent commit's
 
 Phases:
   1. build the CUDA kernels of flowreg3d_tpu_torch/csrc (one nvcc call);
   2. each kernel against its plain version on the card, at the shapes of
-     the canonical step, and the warp against scipy on a crop; 2b. the
+     the canonical step, and the warp against scipy on a crop; the median
+     also at the full-size direct-path shape, a ragged shape and a tied
+     input, and timed at every level of a direct-API step; 2b. the
      flow-driven-diffusivity kernels (psi field, psi and constant-weight
-     half-sweeps) at a mid level and at the full 514^2 plane;
+     half-sweeps) at a mid level and at the full 514^2 plane, the psi field
+     also on a ragged grid in both forms and timed at every level;
   3. the canonical motion-correction step (64x512x512, bench.py's pair and
      flow parameters) through get_displacement + imregister_wrapper, with
      the kernels' launch counts, against the same step on the plain path;
      3b. the direct API, get_displacement(fixed, moving) with its own
      defaults (a_smooth 0.5, min_level 0: 10 levels up to 64x512x512), the
-     same way;
+     same way, and bit-identical to the plain path;
   4. the convergent regime (alpha=1.5, min_level=0) on a shifted 32x128x128
      pair, kernel path against plain path, on the accuracy gate;
   5. timings: per kernel launch, plain version, library call, full step;
      5b. the warm direct-API step;
   6. the in-memory pipeline, compensate_arr_3D over a drifting T=4
      recording with the direct API's flow defaults, kernels against the
-     plain pipeline (use_kernels=False), with launch counts, then its warm
-     volumes/s.
+     plain pipeline (use_kernels=False, bit-identical), with launch counts,
+     then its warm volumes/s.
 Then one JSON line of kernels, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero; it also exits non-zero without CUDA or without the
@@ -39,6 +44,7 @@ package beside it.
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +110,20 @@ def cuda_ms(fn, n=20, warm=3):
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n=20):
+    """Device ms per call of ``fn``: ``n`` calls captured in one CUDA graph
+    and replayed, so the host's launch cost is out of the number."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 5) / n
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -147,9 +167,18 @@ def phase_build(card):
     log(f"built {_ext.build_info['path']} in "
         f"{time.perf_counter() - t:.2f} s (nvcc {_ext.build_info['seconds']}"
         " s)")
-    for line in _ext.build_info["log"].splitlines():
+    build_log = _ext.build_info["log"]
+    if build_log:
+        out = HERE / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "nvcc_build.log").write_text(build_log)
+    kernel = None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
         if "registers" in line or "spill" in line or "error" in line:
-            log(f"  nvcc: {line.strip()}")
+            log(f"  nvcc [{kernel}]: {line.strip()}")
 
 
 def phase_kernels(card, dev):
@@ -321,11 +350,52 @@ def phase_kernels(card, dev):
         bound_ms=bnd, bound_by=by, library_ms=cuda_ms(library_median, 10),
         shape=f"xp {tuple(xp.shape)}"))
     rows.append(median_b1)
+    phase_median_shapes(card, dev)
     for r in rows:
         log(f"  {r['name']} [{r['shape']}]: {r['ms']:.4f} ms/launch, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms']} ms; card {card}")
     return rows
+
+
+def phase_median_shapes(card, dev):
+    """median5_f32 bit-equal to its plain version at the full-size direct-
+    path shape, a ragged shape and a tied input; its time at every level
+    of one direct-API step."""
+    import torch
+
+    from flowreg3d_tpu_torch.core.pyramid import level_schedule
+    from flowreg3d_tpu_torch.ops import median_kernel as mk
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    full = (3,) + tuple(n + 4 for n in SHAPE)
+    for tag, xp in (
+            ("full size", torch.randn(full, generator=gen, device=dev)),
+            ("ragged", torch.randn((3, 13, 73, 77), generator=gen,
+                                   device=dev)),
+            ("tied 0..3", torch.randint(0, 4, (3, 25, 172, 172),
+                                        generator=gen, device=dev).float())):
+        same = bool(torch.equal(mk.median5(xp), mk.median5_plain(xp)))
+        log(f"  median5 {tag} xp {tuple(xp.shape)}: bit-equal to plain: "
+            f"{same}")
+        check(same, f"median5 is not bit-exact at {tag} {tuple(xp.shape)}")
+    xp = torch.randn(full, generator=gen, device=dev)
+    full_ms = cuda_ms(lambda: mk.median5(xp), 10)
+    log(f"  median5_f32 at xp {full}: {full_ms:.4f} ms/launch; card {card}")
+    del xp
+    plan, _, _ = level_schedule(SHAPE, DIRECT_DEFAULTS["eta"],
+                                DIRECT_DEFAULTS["levels"],
+                                DIRECT_DEFAULTS["min_level"])
+    per_level = {}
+    for _, size, _ in plan:
+        if min(size) > 5:
+            xp = mk.mirror_pad2(torch.randn((3,) + size, generator=gen,
+                                            device=dev))
+            per_level[size] = graph_ms(lambda: mk.median5(xp))
+    log(f"  median5_f32 per level of a direct-API step (device ms, CUDA "
+        f"graph): "
+        f"{ {str(k): round(v, 4) for k, v in per_level.items()} }, summed "
+        f"{sum(per_level.values()):.3f} ms; card {card}")
 
 
 def counters():
@@ -517,8 +587,9 @@ def phase_psi_kernels(card, dev):
             f"{e_sweep:.3e}, sor_halfsweep_const {e_const:.3e}; ring "
             f"untouched {ring_same}; bit-equal "
             f"{max(e_psi, e_psi75, e_sweep, e_const) == 0.0}")
-        for name, e in (("psi_field", max(e_psi, e_psi75)),
-                        ("sor_halfsweep_psi", e_sweep),
+        check(max(e_psi, e_psi75) == 0.0,
+              f"psi_field is not bit-equal at {(P, M, N)}: {e_psi}, {e_psi75}")
+        for name, e in (("sor_halfsweep_psi", e_sweep),
                         ("sor_halfsweep_const", e_const)):
             check(e <= KERNEL_TOL, f"{name} disagrees at {(P, M, N)}: {e}")
         check(ring_same, "sor_halfsweep_psi wrote the ring")
@@ -547,11 +618,13 @@ def phase_psi_kernels(card, dev):
                        bound_ms=bnd, bound_by=by, library_ms=None,
                        shape=f"({P},{M},{N})")
             out[(name, level)] = row
-            log(f"  {name} at ({P},{M},{N}): {row['ms']:.4f} ms/launch, "
-                f"plain {row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by})"
-                f"; card {card}")
+            log(f"  {name} at ({P},{M},{N}): {row['ms']:.4f} ms/launch "
+                f"(device only, CUDA graph: {graph_ms(kern):.4f}), plain "
+                f"{row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}); card "
+                f"{card}")
         del duvw, base, sj, psi_k, psi_p, a, b
 
+    phase_psi_field_shapes(card, dev, plan, d)
     # One psi_field kernel serves every plane, so rows 6 and 7 both carry
     # its launches counted over the direct-API step.
     rows = [
@@ -565,6 +638,43 @@ def phase_psi_kernels(card, dev):
              replaces="flowreg3d_tpu/core/solver_pallas.py:148"),
     ]
     return rows
+
+
+def phase_psi_field_shapes(card, dev, plan, d):
+    """psi_field_f32 bit-equal to its plain version on a ragged grid in both
+    forms (rsqrt at a = 0.5, powf at a = 0.75); its time at every level of
+    one direct-API step (20 launches a level)."""
+    import torch
+
+    from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def fields(shape):
+        duvw = 0.1 * torch.randn((3,) + shape, generator=gen, device=dev)
+        base = 2.0 * torch.rand((3,) + shape, generator=gen, device=dev)
+        return duvw, base
+
+    duvw, base = fields((13, 73, 77))
+    for a_smooth in (0.5, 0.75):
+        params = spk.psi_params(a_smooth, 1.25, 1.5, 1.75)
+        e = float((spk.psi_field(duvw, base, *params)
+                   - spk.psi_field_plain(duvw, base, *params)).abs().max())
+        log(f"  psi_field ragged (13,73,77) a={a_smooth}: max|kernel-plain| "
+            f"= {e:.3e}")
+        check(e == 0.0, f"psi_field is not bit-equal on (13,73,77) at "
+              f"a={a_smooth}: {e}")
+    per_level = {}
+    for _, size, (hz, hy, hx) in plan:
+        duvw, base = fields(tuple(n + 2 for n in size))
+        params = spk.psi_params(d["a_smooth"], hx, hy, hz)
+        out = torch.empty_like(duvw[0])
+        per_level[size] = d["iterations"] * graph_ms(
+            lambda: spk.psi_field(duvw, base, *params, out=out))
+    log(f"  psi_field_f32 per level of a direct-API step ({d['iterations']} "
+        f"launches each, device ms, CUDA graph): "
+        f"{ {str(k): round(v, 4) for k, v in per_level.items()} }, summed "
+        f"{sum(per_level.values()):.3f} ms; card {card}")
 
 
 def step_bounds(plan, d):
@@ -647,6 +757,8 @@ def phase_direct(card, dev):
     check(k["improvement"] > 1 and p["improvement"] > 1,
           f"no improvement: {k['improvement']}, {p['improvement']}")
     check(epe <= 0.25, f"direct-API flow EPE {epe} > 0.25")
+    check(bool(torch.equal(flow_k, flow_p) and torch.equal(reg_k, reg_p)),
+          "direct-API step: kernel and plain paths are not bit-identical")
     return launches, fixed_t, moving_t, plain_s
 
 
@@ -732,6 +844,8 @@ def phase_pipeline(card, dev, fixed):
               <= 0.02 * abs(p["mean_disp"][t]),
               f"frame {t}: mean_disp {k['mean_disp'][t]} vs "
               f"{p['mean_disp'][t]}")
+    check(np.array_equal(reg_k, reg_p) and np.array_equal(flows_k, flows_p),
+          "pipeline: kernel and plain paths are not bit-identical")
     _, _, warm_s = run_pipeline(frames, fixed, True, dev)
     log(f"  pipeline warm run: {warm_s:.3f} s for {PIPELINE_T} volumes, "
         f"{PIPELINE_T / warm_s:.4f} volumes/s ({solves} flow solves); card "
@@ -817,11 +931,73 @@ def phase_profile(work, tag):
             f"{e.key[:90]}")
 
 
+def ab_child(tree):
+    """One timing pass of the port found in checkout ``tree``: the warm
+    direct-API step (15 times), the warm pipeline (twice), the median and
+    the psi field at two shapes each (CUDA events around back-to-back calls,
+    and device only through a CUDA graph); one line 'AB {json}'. Uses only
+    entry points that every slice of the port has."""
+    import torch
+
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch import _ext
+    from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
+    from flowreg3d_tpu_torch.ops import median_kernel as mk
+
+    _ext.lib()
+    dev = torch.device("cuda")
+    fixed, moving = make_pair(SHAPE)
+    fixed_t, moving_t = (torch.from_numpy(a).to(dev) for a in (fixed, moving))
+    run_step(fixed_t, moving_t, {}, True)
+    steps = []
+    for _ in range(15):
+        t = time.perf_counter()
+        run_step(fixed_t, moving_t, {}, True)
+        steps.append(1e3 * (time.perf_counter() - t))
+    frames = recording(fixed, PIPELINE_T)
+    run_pipeline(frames, fixed, True, dev)
+    pipeline_s = [run_pipeline(frames, fixed, True, dev)[2] for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kernels = {}
+    for shape in ((3, 25, 172, 172), (3, 68, 516, 516)):
+        xp = torch.randn(shape, generator=gen, device=dev)
+        kernels[f"median5 xp {shape}"] = (
+            cuda_ms(lambda: mk.median5(xp), 50),
+            graph_ms(lambda: mk.median5(xp)))
+    params = spk.psi_params(0.5, 1.0, 1.0, 1.0)
+    for shape in ((23, 170, 170), (66, 514, 514)):
+        duvw = 0.1 * torch.randn((3,) + shape, generator=gen, device=dev)
+        base = 2.0 * torch.rand((3,) + shape, generator=gen, device=dev)
+        psi = torch.empty_like(duvw[0])
+        kernels[f"psi_field {shape}"] = (
+            cuda_ms(lambda: spk.psi_field(duvw, base, *params, out=psi), 50),
+            graph_ms(lambda: spk.psi_field(duvw, base, *params, out=psi)))
+    print("AB " + json.dumps(dict(
+        tree=str(tree), package=ft.__file__, card=card_line(),
+        direct_step_ms=steps, direct_step_ms_median=float(np.median(steps)),
+        pipeline_s=pipeline_s,
+        pipeline_volumes_per_s=PIPELINE_T / float(np.median(pipeline_s)),
+        kernels_ms_events_and_graph=kernels)), flush=True)
+
+
+def ab(parent):
+    """Parent checkout, this one, this one, parent: a child process each on
+    the same card, so host and card are shared by both versions."""
+    for tree in (parent, HERE, HERE, parent):
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--ab-child", str(tree)], check=True, timeout=900)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm canonical and one warm "
                     "direct-API step (torch.profiler)")
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="only time this checkout against the one in PARENT "
+                    "(parent, this, this, parent), printing 'AB {json}' lines")
+    ap.add_argument("--ab-child", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -830,6 +1006,12 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if args.ab_child:
+        ab_child(args.ab_child)
+        return 0
+    if args.ab:
+        ab(args.ab)
+        return 0
     sys.path.insert(0, str(HERE))
     import flowreg3d_tpu_torch  # noqa: F401  (fails outside a checkout)
 

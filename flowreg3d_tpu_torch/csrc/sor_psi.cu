@@ -49,12 +49,18 @@
 // form reads no psi, 0.344 ms. Flops (~120 an active cell) are far below
 // the fp32 rate.
 //
-// Design: one thread per cell (psi) or per active-parity interior cell
-// (half-sweeps; x walks pairs, as in sor_halfsweep.cu); neighbour reads go
-// through L1/L2. In place on the increments is safe: a half-sweep reads
-// only opposite-parity increments, which it never writes. The TPU kernel's
-// slab DMAs, (8, 128) padding, in-order grid aliasing and psi seed buffer
-// solved VMEM problems this card does not have.
+// Design: psi_field_f32 uses 2.5-D blocking (see psi_field_kernel): a
+// block walks z over a 32 x 8 (x, y) tile and keeps each plane's tot_c in
+// shared memory, so base and increments leave device memory about once
+// (the one-cell halo rereads mostly hit L2); a small level cuts z into
+// chunks, each with its own two-plane prologue, to give the card enough
+// blocks (see psi_field_f32). The half-sweeps run one thread per
+// active-parity interior cell (x walks pairs, as in
+// sor_halfsweep.cu); neighbour reads go through L1/L2. In place on the
+// increments is safe: a half-sweep reads only opposite-parity increments,
+// which it never writes. The TPU kernel's slab DMAs, (8, 128) padding,
+// in-order grid aliasing and psi seed buffer solved VMEM problems this
+// card does not have.
 
 #include <cuda_runtime.h>
 
@@ -69,44 +75,129 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void psi_field_kernel(const float* __restrict__ duvw,
-                                 const float* __restrict__ base,
-                                 float* __restrict__ psi, int P, int M, int N,
-                                 float a, float expo, float ihx, float ihy,
-                                 float ihz) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int z = blockIdx.z;
-  if (x >= N || y >= M) return;
+// psi_field_kernel: a block owns a PTY x PTX tile of (y, x) and walks a
+// chunk of z. Each plane's tot_c = base_c + inc_c(clamped), for u, v and w,
+// is computed once per cell into a ring of shared-memory planes with a
+// one-cell halo (clamped to the grid, which is the gradient's clamp); the
+// z-gradient reads the planes above and below, the y- and x-gradients the
+// halo of the current one. Each thread holds the next two planes' base and
+// increments for its halo cells in registers, so the loads of plane z + 3
+// are in flight while plane z is computed; one barrier a plane.
+constexpr int PTX = 32, PTY = 8;           // cells of a tile
+constexpr int HX = PTX + 2, HY = PTY + 2;  // with the halo
+constexpr int HCELLS = HX * HY;
+constexpr int PSI_THREADS = PTX * PTY;
+constexpr int FETCH = (HCELLS + PSI_THREADS - 1) / PSI_THREADS;
+constexpr int SLOTS = 4;  // planes z-1, z, z+1 read while z+2 is stored
 
+__global__ void __launch_bounds__(PSI_THREADS)
+    psi_field_kernel(const float* __restrict__ duvw,
+                     const float* __restrict__ base, float* __restrict__ psi,
+                     int P, int M, int N, float a, float expo, float ihx,
+                     float ihy, float ihz, int zc) {
+  __shared__ float tot[SLOTS][3][HCELLS];
+  const int tid = threadIdx.y * PTX + threadIdx.x;
+  const int x0 = blockIdx.x * PTX, y0 = blockIdx.y * PTY;
+  const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, P);
   const long long plane = (long long)M * N;
   const long long vol = plane * P;
-  // grid neighbours, clamped to the grid (the gradient's clamp)
-  const int zm = z > 0 ? z - 1 : 0, zp = z < P - 1 ? z + 1 : P - 1;
-  const int ym = y > 0 ? y - 1 : 0, yp = y < M - 1 ? y + 1 : M - 1;
-  const int xm = x > 0 ? x - 1 : 0, xp = x < N - 1 ? x + 1 : N - 1;
 
-  auto tot = [&](const float* b, const float* d, int qz, int qy, int qx) {
-    const long long q = ((long long)qz * M + qy) * N + qx;
-    const long long r = ((long long)clampi(qz, 1, P - 2) * M +
-                         clampi(qy, 1, M - 2)) * N + clampi(qx, 1, N - 2);
-    return b[q] + d[r];
+  // this thread's halo cells: base offset q and clamped increment offset r
+  // within a plane (the launcher checks that a plane's offsets fit an int)
+  int qo[FETCH], ro[FETCH];
+  bool on[FETCH];
+#pragma unroll
+  for (int l = 0; l < FETCH; ++l) {
+    const int i = tid + l * PSI_THREADS;
+    on[l] = i < HCELLS;
+    const int y = clampi(y0 + i / HX - 1, 0, M - 1);
+    const int x = clampi(x0 + i % HX - 1, 0, N - 1);
+    qo[l] = y * N + x;
+    ro[l] = clampi(y, 1, M - 2) * N + clampi(x, 1, N - 2);
+  }
+  float b0[FETCH][3], d0[FETCH][3], b1[FETCH][3], d1[FETCH][3];
+  auto fetch = [&](int q, float (&b)[FETCH][3], float (&d)[FETCH][3]) {
+    const int zq = clampi(q, 0, P - 1);  // plane q, clamped to the grid
+    const long long bo = zq * plane, io = clampi(zq, 1, P - 2) * plane;
+#pragma unroll
+    for (int l = 0; l < FETCH; ++l)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if (on[l]) {
+          b[l][c] = base[c * vol + bo + qo[l]];
+          d[l][c] = duvw[c * vol + io + ro[l]];
+        }
+  };
+  auto store = [&](int q, const float (&b)[FETCH][3],
+                   const float (&d)[FETCH][3]) {  // q >= -1
+    const int s = (q + SLOTS) % SLOTS;
+#pragma unroll
+    for (int l = 0; l < FETCH; ++l)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if (on[l]) tot[s][c][tid + l * PSI_THREADS] = b[l][c] + d[l][c];
+  };
+  const int y = y0 + threadIdx.y, x = x0 + threadIdx.x;
+  const int own = (threadIdx.y + 1) * HX + threadIdx.x + 1;
+  auto compute = [&](int z) {
+    const int sm = (z + SLOTS - 1) % SLOTS, s0 = z % SLOTS,
+              sp = (z + 1) % SLOTS;
+    float g = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float gz = (tot[sp][c][own] - tot[sm][c][own]) * ihz;
+      g = g + gz * gz;
+      const float gy = (tot[s0][c][own + HX] - tot[s0][c][own - HX]) * ihy;
+      g = g + gy * gy;
+      const float gx = (tot[s0][c][own + 1] - tot[s0][c][own - 1]) * ihx;
+      g = g + gx * gx;
+    }
+    if (y < M && x < N) {
+      const float s = g + kEpsSmooth;
+      const float p = (expo == -0.5f) ? rsqrtf(s) : powf(s, expo);
+      psi[((long long)z * M + y) * N + x] = a * p;
+    }
   };
 
-  float g = 0.0f;
-  for (int c = 0; c < 3; ++c) {
-    const float* b = base + c * vol;
-    const float* d = duvw + c * vol;
-    const float gz = (tot(b, d, zp, y, x) - tot(b, d, zm, y, x)) * ihz;
-    g = g + gz * gz;
-    const float gy = (tot(b, d, z, yp, x) - tot(b, d, z, ym, x)) * ihy;
-    g = g + gy * gy;
-    const float gx = (tot(b, d, z, y, xp) - tot(b, d, z, y, xm)) * ihx;
-    g = g + gx * gx;
+  fetch(z0 - 1, b0, d0);
+  store(z0 - 1, b0, d0);
+  fetch(z0, b0, d0);
+  store(z0, b0, d0);
+  fetch(z0 + 1, b0, d0);
+  fetch(z0 + 2, b1, d1);
+  for (int z = z0; z < z1; z += 2) {  // b0/d0 hold plane z+1, b1/d1 z+2
+    store(z + 1, b0, d0);
+    __syncthreads();
+    if (z + 2 < z1) fetch(z + 3, b0, d0);
+    compute(z);
+    if (z + 1 < z1) {
+      store(z + 2, b1, d1);
+      __syncthreads();
+      if (z + 3 < z1) fetch(z + 4, b1, d1);
+      compute(z + 1);
+    }
   }
-  const float s = g + kEpsSmooth;
-  const float p = (expo == -0.5f) ? rsqrtf(s) : powf(s, expo);
-  psi[((long long)z * M + y) * N + x] = a * p;
+}
+
+// blocks of psi_field_kernel resident on the current device, cached
+cudaError_t psi_field_slots(int* slots) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, psi_field_kernel, PSI_THREADS, 0);
+    if (e != cudaSuccess) return e;
+    if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
+    cached[dev] = sms * per_sm;
+  }
+  *slots = cached[dev];
+  return cudaSuccess;
 }
 
 template <bool kPsi>
@@ -187,11 +278,29 @@ dim3 sweep_grid(int P, int M, int N, dim3 block) {
 extern "C" int psi_field_f32(const void* duvw, const void* base, void* psi,
                              int P, int M, int N, float a, float expo,
                              float ihx, float ihy, float ihz, void* stream) {
-  const dim3 block(32, 8, 1);
-  const dim3 grid((N + block.x - 1) / block.x, (M + block.y - 1) / block.y, P);
+  // Chunks of z: a block's time is about its planes (two of prologue and
+  // zc walked) times a latency-bound step, so take the chunk count that
+  // minimises rounds of resident blocks x (zc + 2); a large level walks
+  // all of z in one chunk, a small one splits z to fill the card.
+  if ((long long)M * N > 2147483647LL) return (int)cudaErrorInvalidValue;
+  int slots = 0;
+  const cudaError_t e = psi_field_slots(&slots);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 block(PTX, PTY, 1);
+  const int tiles_x = (N + PTX - 1) / PTX, tiles_y = (M + PTY - 1) / PTY;
+  const long long tiles = (long long)tiles_x * tiles_y;
+  int zc = P;
+  long long best = -1;
+  for (int chunks = 1; chunks <= P; ++chunks) {
+    const int c = (P + chunks - 1) / chunks;
+    const long long blocks = tiles * ((P + c - 1) / c);
+    const long long cost = (blocks + slots - 1) / slots * (c + 2);
+    if (best < 0 || cost < best) best = cost, zc = c;
+  }
+  const dim3 grid(tiles_x, tiles_y, (P + zc - 1) / zc);
   psi_field_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)duvw, (const float*)base, (float*)psi, P, M, N, a, expo,
-      ihx, ihy, ihz);
+      ihx, ihy, ihz, zc);
   return (int)cudaGetLastError();
 }
 

@@ -93,6 +93,9 @@ def apply_gaussian_filter(arr, sigma, truncate=4.0):
     """MATLAB-order Gaussian of (Z,Y,X,C) or (T,Z,Y,X,C).
 
     ``sigma``: (4,) = [sx,sy,sz,st] for all channels, or (C,4) per channel.
+    Only the MATLAB-order lengths are reversed to the array's axes: 3 on
+    4-D input, 4 on 5-D input; any other length applies as given, from the
+    leading axis, as in the JAX package.
     """
     sigma = np.asarray(sigma, dtype=np.float64)
     if arr.dim() not in (4, 5):
@@ -102,8 +105,9 @@ def apply_gaussian_filter(arr, sigma, truncate=4.0):
         s = sigma[min(c, len(sigma) - 1)] if sigma.ndim == 2 else sigma
         if arr.dim() == 4:
             s = s[:3]
-        chans.append(gaussian_filter_3d(arr[..., c], tuple(s[::-1]),
-                                        truncate))
+        if len(s) == arr.dim() - 1:
+            s = s[::-1]
+        chans.append(gaussian_filter_3d(arr[..., c], tuple(s), truncate))
     return torch.stack(chans, dim=-1)
 
 

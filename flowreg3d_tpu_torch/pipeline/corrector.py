@@ -143,7 +143,8 @@ class BatchMotionCorrector:
             self.weight[..., c] = self.options.get_weight_at(c, C)
 
         self._reference_raw_d = self._upload(self.reference_raw)
-        self.reference_proc = self._preprocess_frames(self._reference_raw_d)
+        self.reference_proc = self._preprocess_frames(self._reference_raw_d,
+                                                      self.reference_raw)
 
     def _upload(self, frames):
         return torch.as_tensor(np.asarray(frames)).to(device=self.device,
@@ -158,13 +159,14 @@ class BatchMotionCorrector:
             frames = np.asarray(frames)[..., list(idx)]
         return frames
 
-    def _preprocess_frames(self, frames, normalization_ref=None):
+    def _preprocess_frames(self, frames, host_frames,
+                           normalization_ref=None):
         """normalize (optionally against the reference's range), then the
-        Gaussian; a user ``preproc_funct`` (tensor in, tensor or array out)
-        replaces the chain."""
+        Gaussian, on the device tensor ``frames``. A user ``preproc_funct``
+        replaces the chain: as in the JAX package it gets the host numpy
+        array ``host_frames``, and its result is uploaded as float32."""
         if self.options.preproc_funct is not None:
-            return torch.as_tensor(self.options.preproc_funct(frames)).to(
-                device=self.device, dtype=torch.float32)
+            return self._upload(self.options.preproc_funct(host_frames))
         mode = ("separate" if self.options.channel_normalization.value
                 == "separate" else "together")
         normalized = normalize(frames, ref=normalization_ref,
@@ -254,7 +256,7 @@ class BatchMotionCorrector:
                 batch = self._select_channels(self.video_reader.read_batch())
                 batch_d = self._upload(batch)
                 batch_proc = self._preprocess_frames(
-                    batch_d, normalization_ref=self._reference_raw_d)
+                    batch_d, batch, normalization_ref=self._reference_raw_d)
 
                 if self.w_init is None:
                     self.w_init = self._compute_initial_w(batch_d, batch_proc)

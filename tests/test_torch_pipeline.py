@@ -7,6 +7,8 @@ JAX package's, on the CPU.
   ``RegistrationConfig(parallelization="sequential", device_resident=False)``:
   max |registered difference| <= 1e-4 and max |flow difference| <= 1e-3,
   with update_initialization_w on and off;
+- a user ``preproc_funct`` gets the host numpy batch in both packages,
+  and their outputs agree within the bounds above;
 - ``flow_statistics`` within 1e-5; ``normalize`` and
   ``apply_gaussian_filter`` on 4D and 5D inputs within 2e-6, the symmetric
   padding exactly;
@@ -17,17 +19,20 @@ JAX package's, on the CPU.
 import numpy as np
 import pytest
 import torch
+from scipy.ndimage import gaussian_filter
 
 from flowreg3d_tpu.ops import filters as jfilters
 from flowreg3d_tpu.pipeline import RegistrationConfig as JaxConfig
 from flowreg3d_tpu.pipeline import compensate_arr as jax_compensate
+from flowreg3d_tpu.pipeline import compensate_arr_3D as jax_compensate_3d
 from flowreg3d_tpu.pipeline import flow_statistics as jax_stats
 
 from flowreg3d_tpu_torch.convert import options_from_jax
 from flowreg3d_tpu_torch.ops import filters as tfilters
 from flowreg3d_tpu_torch.pipeline import (BatchMotionCorrector,
                                           OutputFormat, RegistrationConfig,
-                                          compensate_arr, flow_statistics)
+                                          compensate_arr, compensate_arr_3D,
+                                          flow_statistics)
 
 # the JAX pipeline tests' fixtures, shared so both packages see one case
 from tests.pipeline.conftest import (base_volume, fast_options,  # noqa: F401
@@ -57,6 +62,35 @@ def test_compensate_arr_matches_jax(video5d, base_volume, update_w):
     np.testing.assert_allclose(w, w_j, rtol=0, atol=1e-3)
     err_before = np.abs(video5d - base_volume[None]).mean()
     assert np.abs(reg - base_volume[None]).mean() < err_before
+
+
+def test_preproc_funct_gets_host_numpy_like_jax(video5d, base_volume):
+    """A user preproc_funct is called on the host numpy batch, as the JAX
+    pipeline calls it, and its result drives the flow in both alike. The
+    hook smooths, as the default chain does: on unsmoothed frames both
+    packages amplify rounding (ROADMAP Queue 3) beyond these bounds."""
+    calls = {"jax": [], "port": []}
+
+    def hook_for(tag):
+        def hook(frames):
+            assert isinstance(frames, np.ndarray), type(frames)
+            calls[tag].append(frames.shape)
+            frames = np.asarray(frames, np.float64)
+            return gaussian_filter(
+                frames, (0,) * (frames.ndim - 4) + (1.0, 1.0, 1.0, 0))
+        return hook
+
+    want = jax_compensate_3d(
+        video5d, base_volume, config=JAX_CONFIG,
+        options=fast_options(a_smooth=0.5, preproc_funct=hook_for("jax")))
+    got = compensate_arr_3D(
+        video5d, base_volume, device="cpu",
+        options=options_from_jax(fast_options(
+            a_smooth=0.5, preproc_funct=hook_for("port"))))
+    assert calls["port"] == calls["jax"] == [base_volume.shape,
+                                             video5d.shape]
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-3)
 
 
 def test_shape_matrix_and_casting(video5d, base_volume):
@@ -112,7 +146,8 @@ def test_flow_statistics_matches_jax():
 @pytest.mark.parametrize("shape,sigma", [
     ((10, 20, 24, 2), [[1.0, 1.5, 0.7, 0.1], [2.0, 1.0, 1.0, 0.1]]),
     ((5, 10, 20, 24, 1), [1.0, 1.0, 1.0, 2.0]),
-    ((4, 3, 7, 9, 2), [[1.0, 1.0, 1.0, 0.1]])])
+    ((4, 3, 7, 9, 2), [[1.0, 1.0, 1.0, 0.1]]),
+    ((4, 3, 7, 9, 1), [1.0, 1.5, 2.0])])
 @pytest.mark.parametrize("mode", ["together", "separate"])
 @pytest.mark.parametrize("with_ref", [False, True])
 def test_preprocessing_matches_jax(shape, sigma, mode, with_ref):
