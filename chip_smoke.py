@@ -15,12 +15,18 @@ Run from the root of a checkout on a machine with an NVIDIA card:
 Phases:
   1. build the CUDA kernels of flowreg3d_tpu_torch/csrc (one nvcc call);
   2. each kernel against its plain version on the card, at the shapes of
-     the canonical step, and the warp against scipy on a crop; the median
-     also at the full-size direct-path shape, a ragged shape and a tied
-     input, and timed at every level of a direct-API step; 2b. the
-     flow-driven-diffusivity kernels (psi field, psi and constant-weight
-     half-sweeps) at a mid level and at the full 514^2 plane, the psi field
-     also on a ragged grid in both forms and timed at every level;
+     the canonical step: the SOR tick block (one cooperative launch of
+     sor_iterations_f32) at every canonical level for a full block and a
+     remainder, in its streamed mode at the full 514^2 plane, on a ragged
+     shape and on both sides of its on-chip mode's budget, timed per level;
+     the warp for orders 3 and 1 on a smooth flow, sparse far jumps,
+     random coordinates, a ragged shape and flat coordinates, and against
+     scipy on a crop; the median also at the full-size direct-path
+     shape, a ragged shape and a tied input, and timed at every level of a
+     direct-API step; 2b. the flow-driven-diffusivity kernels (psi field,
+     psi and constant-weight half-sweeps) at a mid level and at the full
+     514^2 plane, the psi field also on a ragged grid in both forms and
+     timed at every level;
   3. the canonical motion-correction step (64x512x512, bench.py's pair and
      flow parameters) through get_displacement + imregister_wrapper, with
      the kernels' launch counts, against the same step on the plain path;
@@ -34,7 +40,8 @@ Phases:
   6. the in-memory pipeline, compensate_arr_3D over a drifting T=4
      recording with the direct API's flow defaults, kernels against the
      plain pipeline (use_kernels=False, bit-identical), with launch counts,
-     then its warm volumes/s.
+     then its warm volumes/s; 6b. the same at OFOptions' own defaults
+     (a_smooth 1, min_level 5: the SOR tick blocks).
 Then one JSON line of kernels, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}. Any failed check raises, so the
 script exits non-zero; it also exits non-zero without CUDA or without the
@@ -78,7 +85,12 @@ SCIPY_TOL = 2e-4                   # tests/ops/test_warp_pallas.py:58
 
 
 def log(msg):
-    print(f"[chip_smoke {time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
+    line = f"[chip_smoke {time.perf_counter() - T0:8.2f}s] {msg}"
+    print(line, flush=True)
+    out = HERE / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    with open(out / "chip_smoke.log", "a") as f:
+        f.write(line + "\n")
 
 
 def check(cond, msg):
@@ -184,128 +196,19 @@ def phase_build(card):
 def phase_kernels(card, dev):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
-    from scipy.ndimage import map_coordinates
 
-    from flowreg3d_tpu_torch.core import solver_kernel as sk
     from flowreg3d_tpu_torch.core.pyramid import level_schedule
     from flowreg3d_tpu_torch.ops import median_kernel as mk
-    from flowreg3d_tpu_torch.ops import warp as tw
-    from flowreg3d_tpu_torch.ops import warp_kernel as wk
 
     log("phase 2: kernels against their plain versions on the card")
     rng = np.random.default_rng(1)
-    rows = []
-
-    # --- SOR half-sweep, at the finest canonical level and a 514^2 plane
     plan, _, _ = level_schedule(SHAPE, CANONICAL["eta"], CANONICAL["levels"],
                                 CANONICAL["min_level"])
-    _, size5, (hz, hy, hx) = plan[-1]
-    ax, ay, az = (float(np.float32(0.25) / (np.float32(h) * np.float32(h)))
-                  for h in (hx, hy, hz))
+    size5 = plan[-1][1]
 
-    def sor_inputs(shape):
-        P, M, N = shape
-        duvw = torch.from_numpy(
-            (0.1 * rng.standard_normal((3, P, M, N))).astype(np.float32))
-        sj = rng.random((9, P, M, N)).astype(np.float32) * 0.1
-        sj[:3] += 0.5                     # positive definite data block
-        return duvw.to(dev), torch.from_numpy(sj).to(dev)
+    rows = phase_sor(card, dev)
 
-    err = 0.0
-    for shape, n_half in ((tuple(s + 2 for s in size5), 10),
-                          ((SHAPE[0] + 2, SHAPE[1] + 2, SHAPE[2] + 2), 1)):
-        duvw, sj = sor_inputs(shape)
-        a, b = duvw.clone(), duvw.clone()
-        for k in range(n_half):
-            sk.sor_halfsweep(a, sj, ax, ay, az, k % 2)
-            sk.sor_halfsweep_plain(b, sj, ax, ay, az, k % 2)
-        torch.cuda.synchronize()
-        e = float((a - b).abs().max())
-        ring_same = bool(torch.equal(a[:, 0], duvw[:, 0])
-                         and torch.equal(a[:, :, :, -1], duvw[:, :, :, -1]))
-        log(f"  sor_halfsweep {shape} x{n_half}: max|kernel-plain| = {e:.3e}"
-            f", ring untouched {ring_same}")
-        check(e <= KERNEL_TOL and ring_same,
-              f"sor_halfsweep disagrees at {shape}: {e}")
-        err = max(err, e)
-    big = tuple(n + 2 for n in SHAPE)      # the plane the y-tiled TPU kernel served
-    duvw, sj = sor_inputs(big)
-    n_int = SHAPE[0] * SHAPE[1] * SHAPE[2]
-    bnd, by = bound_ms(9 * 4 * n_int, 60 * n_int / 2)
-    k_ms = cuda_ms(lambda: sk.sor_halfsweep(duvw, sj, ax, ay, az, 0))
-    p_ms = cuda_ms(lambda: sk.sor_halfsweep_plain(duvw, sj, ax, ay, az, 0), 5)
-    log(f"  sor_halfsweep_f32 at {big}: {k_ms:.4f} ms/launch, plain "
-        f"{p_ms:.4f} ms, bound {bnd:.4f} ms ({by}); card {card}")
-    sor_big = dict(
-        name="sor_halfsweep_f32", route="cuda", path=None,
-        source="flowreg3d_tpu_torch/csrc/sor_halfsweep.cu",
-        replaces="flowreg3d_tpu/core/solver_pallas.py:844", max_abs_err=err,
-        ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-        shape=f"duvw (3,{big[0]},{big[1]},{big[2]}) one half-sweep")
-    P, M, N = (s + 2 for s in size5)
-    duvw, sj = sor_inputs((P, M, N))
-    n_int = (P - 2) * (M - 2) * (N - 2)
-    bnd, by = bound_ms(9 * 4 * n_int, 60 * n_int / 2)
-    rows.append(dict(
-        name="sor_halfsweep_f32", route="cuda", path="canonical",
-        source="flowreg3d_tpu_torch/csrc/sor_halfsweep.cu",
-        replaces="flowreg3d_tpu/core/solver_pallas.py:952",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: sk.sor_halfsweep(duvw, sj, ax, ay, az, 0), 200),
-        plain_ms=cuda_ms(
-            lambda: sk.sor_halfsweep_plain(duvw, sj, ax, ay, az, 0), 20),
-        bound_ms=bnd, bound_by=by, library_ms=None,
-        shape=f"duvw (3,{P},{M},{N}) one half-sweep"))
-    rows.append(sor_big)
-
-    # --- B-spline sampling at the full-size output warp
-    vol, _ = make_pair(SHAPE)
-    Z, Y, X = SHAPE
-    zz, yy, xx = np.meshgrid(*(np.linspace(0, 2 * np.pi, n, dtype=np.float32)
-                               for n in SHAPE), indexing="ij")
-    amp, ph = rng.uniform(2.0, 4.0, 3), rng.uniform(0.0, 2 * np.pi, 3)
-    flow = (amp[0] * np.sin(xx + 0.5 * yy + ph[0]),        # smooth, random
-            amp[1] * np.cos(yy - zz + ph[1]),
-            0.5 * amp[2] * np.sin(zz + xx + ph[2]))
-    grids = np.meshgrid(*(np.arange(n, dtype=np.float32) for n in SHAPE),
-                        indexing="ij")
-    coords = [np.clip(g + f, 0, n - 1).astype(np.float32) for g, f, n in
-              zip(grids, (flow[2], flow[1], flow[0]), SHAPE)]
-    vol_t = torch.from_numpy(vol).to(dev)
-    cz, cy, cx = (torch.from_numpy(c).to(dev) for c in coords)
-    err = 0.0
-    crop = tuple(slice(n // 2 - c // 2, n // 2 + c // 2)
-                 for n, c in zip(SHAPE, (8, 64, 64)))
-    for order, coeff in ((3, tw.bspline_prefilter(vol_t)),
-                         (1, tw._pad_far_edge(vol_t).contiguous())):
-        got = wk.map_coords(coeff, cz, cy, cx, order)
-        want = wk.map_coords_plain(coeff, cz, cy, cx, order)
-        e = float((got - want).abs().max())
-        ref = map_coordinates(vol.astype(np.float64),
-                              [c[crop] for c in coords], order=order,
-                              mode="nearest")
-        e_scipy = float(np.abs(got[crop].cpu().numpy() - ref).max())
-        log(f"  map_coords order {order} {SHAPE}: max|kernel-plain| = "
-            f"{e:.3e}; max|kernel-scipy| on a {ref.shape} crop = "
-            f"{e_scipy:.3e}")
-        check(e <= KERNEL_TOL, f"map_coords order {order} disagrees: {e}")
-        check(e_scipy <= SCIPY_TOL,
-              f"map_coords order {order} vs scipy: {e_scipy}")
-        err = max(err, e)
-    coeff = tw.bspline_prefilter(vol_t)
-    n = Z * Y * X
-    bnd, by = bound_ms(coeff.numel() * 4 + 4 * n * 4, 210 * n)
-    rows.append(dict(
-        name="map_coords_f32", route="cuda", path="direct",
-        source="flowreg3d_tpu_torch/csrc/map_coords.cu",
-        replaces="flowreg3d_tpu/ops/warp_pallas.py:131",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: wk.map_coords(coeff, cz, cy, cx, 3)),
-        plain_ms=cuda_ms(lambda: wk.map_coords_plain(coeff, cz, cy, cx, 3),
-                         3, 1),
-        bound_ms=bnd, bound_by=by, library_ms=None,
-        shape=f"order 3, coeff {tuple(coeff.shape)}, out {SHAPE}"))
-    del cz, cy, cx, coeff
+    rows.append(phase_warp(card, dev, rng))
 
     # --- 5^3 median at the finest level's increments, batched and single
     B = 3
@@ -358,6 +261,254 @@ def phase_kernels(card, dev):
     return rows
 
 
+def sor_inputs(rng, shape, dev):
+    """duvw (3,P,M,N) increments and SJ (9,P,M,N) data terms whose 3x3
+    blocks are positive definite."""
+    import torch
+
+    P, M, N = shape
+    duvw = (0.1 * rng.standard_normal((3, P, M, N))).astype(np.float32)
+    sj = rng.random((9, P, M, N)).astype(np.float32) * 0.1
+    sj[:3] += 0.5
+    return torch.from_numpy(duvw).to(dev), torch.from_numpy(sj).to(dev)
+
+
+def sor_bounds(shape, n_iters):
+    """(ms, by) per tick block: SJ 36 B and duvw 12 B read, duvw 12 B
+    written per interior cell; 60 flops per cell and iteration. And the
+    bound of one half-sweep as earlier slices counted it (9 x 4 B per
+    interior cell), for comparison with one launch per half-sweep."""
+    cells = (shape[0] - 2) * (shape[1] - 2) * (shape[2] - 2)
+    return (bound_ms(60 * cells, 60 * n_iters * cells),
+            bound_ms(36 * cells, 30 * cells)[0])
+
+
+def phase_sor(card, dev):
+    """sor_iterations_f32, one cooperative launch per tick block, against
+    the loop of plain half-sweeps: at every canonical level for a full
+    block and a remainder, in the streamed mode at the full 514^2 plane, on
+    a ragged shape and on both sides of the on-chip mode's budget; bit-
+    equal, ring untouched; timed per canonical level (device only, CUDA
+    graph) and at the rows' shapes."""
+    import torch
+
+    from flowreg3d_tpu_torch.core import solver_kernel as sk
+    from flowreg3d_tpu_torch.core.pyramid import level_schedule
+
+    rng = np.random.default_rng(1)
+    plan, _, _ = level_schedule(SHAPE, CANONICAL["eta"], CANONICAL["levels"],
+                                CANONICAL["min_level"])
+    _, _, (hz, hy, hx) = plan[-1]
+    ax, ay, az = (float(np.float32(0.25) / (np.float32(h) * np.float32(h)))
+                  for h in (hx, hy, hz))
+    lag = CANONICAL["update_lag"]
+    levels = [tuple(n + 2 for n in size) for _, size, _ in plan]
+    full = tuple(n + 2 for n in SHAPE)
+    # the on-chip mode's edge: the first depth of the finest level's plane
+    # whose SJ no longer fits the resident blocks' shared memory
+    P = levels[-1][0]
+    while sk.sor_plan((P,) + levels[-1][1:])["mode"] == sk.SOR_MODES[1]:
+        P += 1
+    edge = [(P - 1,) + levels[-1][1:], (P,) + levels[-1][1:]]
+    want_mode = {**{s: sk.SOR_MODES[1] for s in levels + [(13, 73, 77),
+                                                         edge[0]]},
+                 edge[1]: sk.SOR_MODES[2], full: sk.SOR_MODES[2]}
+    err = {}
+    for shape in levels + [(13, 73, 77)] + edge + [full]:
+        duvw, sj = sor_inputs(rng, shape, dev)
+        pl = sk.sor_plan(shape)
+        for n in (lag, 3):
+            a, b = duvw.clone(), duvw.clone()
+            sk.sor_iterations(a, sj, ax, ay, az, n)
+            sk.sor_iterations_plain(b, sj, ax, ay, az, n)
+            e = float((a - b).abs().max())
+            ring = bool(torch.equal(a[:, 0], duvw[:, 0])
+                        and torch.equal(a[:, :, :, -1], duvw[:, :, :, -1]))
+            log(f"  sor_iterations {shape} x{n}: max|kernel-plain| = {e:.3e},"
+                f" ring untouched {ring}; {pl}")
+            check(e == 0.0 and ring,
+                  f"sor_iterations is not bit-equal at {shape} x{n}: {e}")
+            err[shape] = max(err.get(shape, 0.0), e)
+        check(pl["mode"] == want_mode[shape],
+              f"sor_iterations at {shape}: mode {pl['mode']}, expected "
+              f"{want_mode[shape]}")
+        del duvw, sj, a, b
+
+    per_level = {}
+    for shape in levels:
+        duvw, sj = sor_inputs(rng, shape, dev)
+        per_level[str(shape)] = graph_ms(
+            lambda: sk.sor_iterations(duvw, sj, ax, ay, az, lag))
+    log(f"  sor_iterations_f32 tick block ({lag} iterations) per canonical "
+        f"level (device ms, CUDA graph): {per_level}, summed x "
+        f"{CANONICAL['iterations'] // lag} blocks "
+        f"{CANONICAL['iterations'] // lag * sum(per_level.values()):.3f} ms;"
+        f" card {card}")
+    rows = []
+    for shape, path, replaces in ((levels[-1], "canonical", 952),
+                                  (full, None, 844)):
+        duvw, sj = sor_inputs(rng, shape, dev)
+        (bnd, by), half_bnd = sor_bounds(shape, lag)
+        row = dict(
+            name="sor_iterations_f32", route="cuda", path=path,
+            source="flowreg3d_tpu_torch/csrc/sor_halfsweep.cu",
+            replaces=f"flowreg3d_tpu/core/solver_pallas.py:{replaces}",
+            max_abs_err=max(err.values()),
+            ms=cuda_ms(lambda: sk.sor_iterations(duvw, sj, ax, ay, az, lag),
+                       50 if path else 10),
+            graph_ms=graph_ms(
+                lambda: sk.sor_iterations(duvw, sj, ax, ay, az, lag),
+                20 if path else 5),
+            plain_ms=cuda_ms(
+                lambda: sk.sor_iterations_plain(duvw, sj, ax, ay, az, lag),
+                3, 1),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+            halfsweep_bound_ms=half_bnd, mode=sk.sor_plan(shape)["mode"],
+            shape=f"duvw (3,{shape[0]},{shape[1]},{shape[2]}), one tick "
+                  f"block of {lag} iterations")
+        if path:
+            row["graph_ms_by_level"] = per_level
+        log(f"  sor_iterations_f32 at {shape}: {row['ms']:.4f} ms a tick "
+            f"block (device only {row['graph_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}; one "
+            f"half-sweep {half_bnd:.4f}), {row['mode']}; card {card}")
+        rows.append(row)
+        del duvw, sj
+    return rows
+
+
+def smooth_flow_coords(shape, rng):
+    """Coordinates of a smooth random flow of 1-4 voxels, clipped to the
+    volume: (cz, cy, cx) float32 numpy arrays."""
+    zz, yy, xx = np.meshgrid(*(np.linspace(0, 2 * np.pi, n, dtype=np.float32)
+                               for n in shape), indexing="ij")
+    amp, ph = rng.uniform(2.0, 4.0, 3), rng.uniform(0.0, 2 * np.pi, 3)
+    flow = (amp[0] * np.sin(xx + 0.5 * yy + ph[0]),
+            amp[1] * np.cos(yy - zz + ph[1]),
+            0.5 * amp[2] * np.sin(zz + xx + ph[2]))
+    grids = np.meshgrid(*(np.arange(n, dtype=np.float32) for n in shape),
+                        indexing="ij")
+    return [np.clip(g + f, 0, n - 1).astype(np.float32) for g, f, n in
+            zip(grids, (flow[2], flow[1], flow[0]), shape)]
+
+
+def check_warp(tag, vol_t, coords_t, order):
+    """map_coords_f32 bit-equal to its plain version."""
+    from flowreg3d_tpu_torch.ops import warp as tw
+    from flowreg3d_tpu_torch.ops import warp_kernel as wk
+
+    coeff = (tw.bspline_prefilter(vol_t) if order == 3
+             else tw._pad_far_edge(vol_t).contiguous())
+    got = wk.map_coords(coeff, *coords_t, order)
+    e = float((got - wk.map_coords_plain(coeff, *coords_t, order))
+              .abs().max())
+    log(f"  map_coords order {order} {tag} {tuple(coords_t[0].shape)}: "
+        f"max|kernel-plain| = {e:.3e}")
+    check(e == 0.0, f"map_coords order {order} {tag} is not bit-equal: {e}")
+    return got, e
+
+
+def phase_warp(card, dev, rng):
+    """map_coords_f32 for orders 3 and 1: a smooth flow at the full-size
+    output warp (and against scipy on a crop), a flow with sparse far jumps,
+    random coordinates, a ragged shape and coordinates that are not 3-D;
+    its times, the library call for order 1 (grid_sample) and the plain
+    coordinate build of ops/warp.py."""
+    import torch
+    import torch.nn.functional as F
+    from scipy.ndimage import map_coordinates
+
+    from flowreg3d_tpu_torch.ops import warp as tw
+    from flowreg3d_tpu_torch.ops import warp_kernel as wk
+
+    vol, _ = make_pair(SHAPE)
+    coords = smooth_flow_coords(SHAPE, rng)
+    vol_t = torch.from_numpy(vol).to(dev)
+    coords_t = [torch.from_numpy(c).to(dev) for c in coords]
+    crop = tuple(slice(n // 2 - c // 2, n // 2 + c // 2)
+                 for n, c in zip(SHAPE, (8, 64, 64)))
+    err = 0.0
+    for order in (3, 1):
+        got, e = check_warp("smooth", vol_t, coords_t, order)
+        ref = map_coordinates(vol.astype(np.float64),
+                              [c[crop] for c in coords], order=order,
+                              mode="nearest")
+        e_scipy = float(np.abs(got[crop].cpu().numpy() - ref).max())
+        log(f"  map_coords order {order}: max|kernel-scipy| on a "
+            f"{ref.shape} crop = {e_scipy:.3e}")
+        check(e_scipy <= SCIPY_TOL,
+              f"map_coords order {order} vs scipy: {e_scipy}")
+        err = max(err, e)
+    for tag, shape, jumps in (("far jumps", (16, 128, 128), 0.002),
+                              ("random", (16, 64, 64), None),
+                              ("ragged", (13, 73, 77), 0.0)):
+        grids = np.meshgrid(*(np.arange(n, dtype=np.float32) for n in shape),
+                            indexing="ij")
+        if jumps is None:
+            cs = [rng.uniform(0, n - 1, shape) for n in shape]
+        else:
+            cs = [np.clip(g + 1.5 * np.sin(g / 7.0)
+                          + 40.0 * (rng.random(shape) < jumps), 0, n - 1)
+                  for g, n in zip(grids, shape)]
+        v = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        cs_t = [torch.from_numpy(c.astype(np.float32)).to(dev) for c in cs]
+        for order in (3, 1):
+            err = max(err, check_warp(tag, v, cs_t, order)[1])
+            if tag == "ragged":      # the same coordinates as one flat row
+                err = max(err, check_warp("flat", v, [c.reshape(-1)
+                                                      for c in cs_t],
+                                          order)[1])
+
+    Z, Y, X = SHAPE
+    n = Z * Y * X
+    out = {}
+    for order in (3, 1):
+        coeff = (tw.bspline_prefilter(vol_t) if order == 3
+                 else tw._pad_far_edge(vol_t).contiguous())
+        bnd, by = bound_ms(coeff.numel() * 4 + 4 * n * 4,
+                           (210 if order == 3 else 40) * n)
+        out[order] = dict(
+            ms=cuda_ms(lambda: wk.map_coords(coeff, *coords_t, order)),
+            graph_ms=graph_ms(lambda: wk.map_coords(coeff, *coords_t, order),
+                              10),
+            plain_ms=cuda_ms(lambda: wk.map_coords_plain(coeff, *coords_t,
+                                                         order), 3, 1),
+            bound_ms=bnd, bound_by=by)
+    cz, cy, cx = coords_t
+    grid = torch.stack([2 * cx / (X - 1) - 1, 2 * cy / (Y - 1) - 1,
+                        2 * cz / (Z - 1) - 1], -1)[None]
+
+    def library():
+        return F.grid_sample(vol_t[None, None], grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    coeff1 = tw._pad_far_edge(vol_t).contiguous()
+    e_lib = float((library()[0, 0] - wk.map_coords(coeff1, *coords_t, 1))
+                  .abs().max())
+    out[1]["library_ms"] = cuda_ms(library)
+    out[1]["library_max_abs_diff"] = e_lib
+    del grid, coeff1
+    u, v, w = (torch.from_numpy(f).to(dev) for f in
+               (coords[2] - np.arange(X, dtype=np.float32),
+                coords[1] - np.arange(Y, dtype=np.float32)[:, None],
+                coords[0] - np.arange(Z, dtype=np.float32)[:, None, None]))
+    coords_ms = cuda_ms(lambda: tw.sample_coords(u, v, w), 10)
+    log(f"  map_coords_f32 at {SHAPE}: order 3 {out[3]}; order 1 {out[1]} "
+        f"(library: grid_sample trilinear, border, align_corners; max|diff| "
+        f"{e_lib:.3e}); plain coordinate build (ops/warp.py sample_coords) "
+        f"{coords_ms:.4f} ms; card {card}")
+    coeff = tw.bspline_prefilter(vol_t)
+    return dict(
+        name="map_coords_f32", route="cuda", path="direct",
+        source="flowreg3d_tpu_torch/csrc/map_coords.cu",
+        replaces="flowreg3d_tpu/ops/warp_pallas.py:131", max_abs_err=err,
+        ms=out[3]["ms"], graph_ms=out[3]["graph_ms"],
+        plain_ms=out[3]["plain_ms"], bound_ms=out[3]["bound_ms"],
+        bound_by=out[3]["bound_by"], library_ms=None, order1=out[1],
+        coords_ms=coords_ms,
+        shape=f"order 3, coeff {tuple(coeff.shape)}, out {SHAPE}")
+
+
 def phase_median_shapes(card, dev):
     """median5_f32 bit-equal to its plain version at the full-size direct-
     path shape, a ragged shape and a tied input; its time at every level
@@ -402,7 +553,7 @@ def counters():
     from flowreg3d_tpu_torch.core import solver_kernel, solver_psi_kernel
     from flowreg3d_tpu_torch.ops import median_kernel, warp_kernel
 
-    return {"sor_halfsweep_f32": solver_kernel.sor_halfsweep,
+    return {"sor_iterations_f32": solver_kernel.sor_iterations,
             "map_coords_f32": warp_kernel.map_coords,
             "median5_f32": median_kernel.median5,
             "psi_field_f32": solver_psi_kernel.psi_field,
@@ -438,6 +589,7 @@ def phase_canonical(card, dev):
     import torch
 
     from flowreg3d_tpu_torch.core.pyramid import level_schedule
+    from flowreg3d_tpu_torch.core.solver import _blocks
 
     log(f"phase 3: canonical step {SHAPE} through get_displacement + "
         "imregister_wrapper")
@@ -447,7 +599,8 @@ def phase_canonical(card, dev):
     plan, _, _ = level_schedule(SHAPE, CANONICAL["eta"], CANONICAL["levels"],
                                 CANONICAL["min_level"])
     expected = {
-        "sor_halfsweep_f32": len(plan) * 2 * CANONICAL["iterations"],
+        "sor_iterations_f32": len(plan) * len(_blocks(
+            CANONICAL["iterations"], CANONICAL["update_lag"])),
         "map_coords_f32": len(plan) + 1,
         "median5_f32": sum(min(size) > 5 for _, size, _ in plan),
     }
@@ -711,7 +864,7 @@ def phase_direct(card, dev):
         "sor_halfsweep_psi_f32": 2 * len(plan) * d["iterations"],
         "map_coords_f32": len(plan) + 1,
         "median5_f32": sum(min(size) > 5 for _, size, _ in plan),
-        "sor_halfsweep_f32": 0,
+        "sor_iterations_f32": 0,
         "sor_halfsweep_const_f32": 0,
     }
     log(f"  bounds summed over one step's launches: {step_bounds(plan, d)}")
@@ -774,14 +927,24 @@ def recording(fixed, n_frames, seed=4):
     return np.stack(frames).astype(np.float32)
 
 
-def run_pipeline(frames, reference, use_kernels, dev):
-    """compensate_arr_3D over the recording with get_displacement's flow
-    defaults; returns (registered, flows, seconds)."""
-    from flowreg3d_tpu_torch.pipeline import (OFOptions, RegistrationConfig,
+def pipeline_options(defaults):
+    """OFOptions' own defaults (a_smooth 1, min_level 5: the canonical flow
+    options), or the direct API's flow options with all else default."""
+    from flowreg3d_tpu_torch.pipeline import OFOptions
+
+    if defaults:
+        return OFOptions()
+    return OFOptions(alpha=2.0, iterations=20, update_lag=10, levels=50,
+                     eta=0.8, min_level=0, a_smooth=0.5, a_data=0.45)
+
+
+def run_pipeline(frames, reference, use_kernels, dev, defaults=False):
+    """compensate_arr_3D over the recording; returns (registered, flows,
+    seconds)."""
+    from flowreg3d_tpu_torch.pipeline import (RegistrationConfig,
                                               compensate_arr_3D)
 
-    opts = OFOptions(alpha=2.0, iterations=20, update_lag=10, levels=50,
-                     eta=0.8, min_level=0, a_smooth=0.5, a_data=0.45)
+    opts = pipeline_options(defaults)
     t = time.perf_counter()
     reg, flows = compensate_arr_3D(
         frames, reference, opts,
@@ -789,33 +952,42 @@ def run_pipeline(frames, reference, use_kernels, dev):
     return reg, flows, time.perf_counter() - t
 
 
-def phase_pipeline(card, dev, fixed):
+def phase_pipeline(card, dev, fixed, defaults=False):
     """The in-memory pipeline over a drifting recording, kernels against
-    the plain path, then its warm throughput."""
+    the plain path, then its warm throughput: phase 6 at the direct API's
+    flow options, 6b at OFOptions' own defaults."""
     from flowreg3d_tpu_torch.core.pyramid import level_schedule
+    from flowreg3d_tpu_torch.core.solver import _blocks
     from flowreg3d_tpu_torch.pipeline import flow_statistics
 
-    d = direct_defaults()
-    plan, _, _ = level_schedule(SHAPE, d["eta"], d["levels"], d["min_level"])
+    o = pipeline_options(defaults)
+    plan, _, _ = level_schedule(SHAPE, o.eta, o.levels,
+                                o.effective_min_level)
     frames = recording(fixed, PIPELINE_T)
-    log(f"phase 6: pipeline compensate_arr_3D over T={PIPELINE_T} frames of "
-        f"{SHAPE} (initial w pass + batch: {2 * PIPELINE_T} flow solves)")
     solves = 2 * PIPELINE_T
+    log(f"phase {'6b' if defaults else 6}: pipeline compensate_arr_3D over "
+        f"T={PIPELINE_T} frames of {SHAPE} (initial w pass + batch: {solves} "
+        f"flow solves), alpha {o.alpha}, a_smooth {o.a_smooth}, min_level "
+        f"{o.min_level}, {o.iterations} iterations, update_lag "
+        f"{o.update_lag}: {len(plan)} levels")
+    ticks = len(plan) * len(_blocks(o.iterations, o.update_lag))
+    psi = o.a_smooth != 1.0
     expected = {
-        "psi_field_f32": solves * len(plan) * d["iterations"],
-        "sor_halfsweep_psi_f32": 2 * solves * len(plan) * d["iterations"],
+        "psi_field_f32": solves * len(plan) * o.iterations * psi,
+        "sor_halfsweep_psi_f32": 2 * solves * len(plan) * o.iterations * psi,
+        "sor_iterations_f32": solves * ticks * (not psi),
         "map_coords_f32": solves * (len(plan) + 1),
         "median5_f32": solves * sum(min(size) > 5 for _, size, _ in plan),
-        "sor_halfsweep_f32": 0,
         "sor_halfsweep_const_f32": 0,
     }
     reset_counts()
-    reg_k, flows_k, first_s = run_pipeline(frames, fixed, True, dev)
+    reg_k, flows_k, first_s = run_pipeline(frames, fixed, True, dev, defaults)
     launches = read_counts()
     log(f"  kernel run ({first_s:.2f} s): launches {launches}, expected "
         f"{expected}")
     check(launches == expected, f"pipeline launches {launches} != {expected}")
-    reg_p, flows_p, plain_s = run_pipeline(frames, fixed, False, dev)
+    reg_p, flows_p, plain_s = run_pipeline(frames, fixed, False, dev,
+                                           defaults)
 
     def per_frame(reg, flows):
         check(reg.shape == frames.shape and flows.shape == frames.shape + (3,)
@@ -846,7 +1018,7 @@ def phase_pipeline(card, dev, fixed):
               f"{p['mean_disp'][t]}")
     check(np.array_equal(reg_k, reg_p) and np.array_equal(flows_k, flows_p),
           "pipeline: kernel and plain paths are not bit-identical")
-    _, _, warm_s = run_pipeline(frames, fixed, True, dev)
+    _, _, warm_s = run_pipeline(frames, fixed, True, dev, defaults)
     log(f"  pipeline warm run: {warm_s:.3f} s for {PIPELINE_T} volumes, "
         f"{PIPELINE_T / warm_s:.4f} volumes/s ({solves} flow solves); card "
         f"{card}")
@@ -933,51 +1105,86 @@ def phase_profile(work, tag):
 
 def ab_child(tree):
     """One timing pass of the port found in checkout ``tree``: the warm
-    direct-API step (15 times), the warm pipeline (twice), the median and
-    the psi field at two shapes each (CUDA events around back-to-back calls,
-    and device only through a CUDA graph); one line 'AB {json}'. Uses only
-    entry points that every slice of the port has."""
+    canonical and direct-API steps (15 times each), the warm pipeline at the
+    direct API's options and at OFOptions() defaults (twice each), and
+    kernels by CUDA events around back-to-back calls and device only
+    through a CUDA graph: the SOR tick block (sweep_iterations, 5
+    iterations) at every canonical level and at (66,514,514), the warp at
+    full size for orders 3 and 1, the median and the psi field at two shapes
+    each; one line 'AB {json}'. Uses only entry points that every slice of
+    the port since the second has."""
     import torch
 
     sys.path.insert(0, str(Path(tree).resolve()))
     import flowreg3d_tpu_torch as ft
     from flowreg3d_tpu_torch import _ext
+    from flowreg3d_tpu_torch.core import solver_kernel as sk
     from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
+    from flowreg3d_tpu_torch.core.pyramid import level_schedule
     from flowreg3d_tpu_torch.ops import median_kernel as mk
+    from flowreg3d_tpu_torch.ops import warp as tw
+    from flowreg3d_tpu_torch.ops import warp_kernel as wk
 
     _ext.lib()
     dev = torch.device("cuda")
     fixed, moving = make_pair(SHAPE)
     fixed_t, moving_t = (torch.from_numpy(a).to(dev) for a in (fixed, moving))
-    run_step(fixed_t, moving_t, {}, True)
-    steps = []
-    for _ in range(15):
-        t = time.perf_counter()
-        run_step(fixed_t, moving_t, {}, True)
-        steps.append(1e3 * (time.perf_counter() - t))
+    steps = {}
+    for tag, params in (("canonical", CANONICAL), ("direct", {})):
+        run_step(fixed_t, moving_t, params, True)
+        steps[tag] = []
+        for _ in range(15):
+            t = time.perf_counter()
+            run_step(fixed_t, moving_t, params, True)
+            steps[tag].append(1e3 * (time.perf_counter() - t))
     frames = recording(fixed, PIPELINE_T)
-    run_pipeline(frames, fixed, True, dev)
-    pipeline_s = [run_pipeline(frames, fixed, True, dev)[2] for _ in range(2)]
-    gen = torch.Generator(device=dev).manual_seed(7)
+    pipeline_s = {}
+    for tag, defaults in (("direct options", False), ("defaults", True)):
+        run_pipeline(frames, fixed, True, dev, defaults)
+        pipeline_s[tag] = [run_pipeline(frames, fixed, True, dev,
+                                        defaults)[2] for _ in range(2)]
     kernels = {}
+
+    def timed(name, fn, n=50):
+        kernels[name] = (cuda_ms(fn, n), graph_ms(fn, min(n, 20)))
+
+    rng = np.random.default_rng(8)
+    plan, _, _ = level_schedule(SHAPE, CANONICAL["eta"], CANONICAL["levels"],
+                                CANONICAL["min_level"])
+    for shape in ([tuple(n + 2 for n in size) for _, size, _ in plan]
+                  + [tuple(n + 2 for n in SHAPE)]):
+        duvw, sj = sor_inputs(rng, shape, dev)
+        timed(f"sor tick block x5 {shape}",
+              lambda: sk.sweep_iterations(duvw, sj, 1.0, 1.0, 1.0, 5),
+              50 if shape[0] < 60 else 5)
+    del duvw, sj
+    vol_t = torch.from_numpy(fixed).to(dev)
+    coords_t = [torch.from_numpy(c).to(dev)
+                for c in smooth_flow_coords(SHAPE, rng)]
+    for order in (3, 1):
+        coeff = (tw.bspline_prefilter(vol_t) if order == 3
+                 else tw._pad_far_edge(vol_t).contiguous())
+        timed(f"map_coords order {order} {SHAPE}",
+              lambda: wk.map_coords(coeff, *coords_t, order), 20)
+    del coeff, coords_t
+    gen = torch.Generator(device=dev).manual_seed(7)
     for shape in ((3, 25, 172, 172), (3, 68, 516, 516)):
         xp = torch.randn(shape, generator=gen, device=dev)
-        kernels[f"median5 xp {shape}"] = (
-            cuda_ms(lambda: mk.median5(xp), 50),
-            graph_ms(lambda: mk.median5(xp)))
+        timed(f"median5 xp {shape}", lambda: mk.median5(xp))
     params = spk.psi_params(0.5, 1.0, 1.0, 1.0)
     for shape in ((23, 170, 170), (66, 514, 514)):
         duvw = 0.1 * torch.randn((3,) + shape, generator=gen, device=dev)
         base = 2.0 * torch.rand((3,) + shape, generator=gen, device=dev)
         psi = torch.empty_like(duvw[0])
-        kernels[f"psi_field {shape}"] = (
-            cuda_ms(lambda: spk.psi_field(duvw, base, *params, out=psi), 50),
-            graph_ms(lambda: spk.psi_field(duvw, base, *params, out=psi)))
+        timed(f"psi_field {shape}",
+              lambda: spk.psi_field(duvw, base, *params, out=psi))
     print("AB " + json.dumps(dict(
         tree=str(tree), package=ft.__file__, card=card_line(),
-        direct_step_ms=steps, direct_step_ms_median=float(np.median(steps)),
+        step_ms=steps,
+        step_ms_median={k: float(np.median(v)) for k, v in steps.items()},
         pipeline_s=pipeline_s,
-        pipeline_volumes_per_s=PIPELINE_T / float(np.median(pipeline_s)),
+        pipeline_volumes_per_s={k: PIPELINE_T / float(np.median(v))
+                                for k, v in pipeline_s.items()},
         kernels_ms_events_and_graph=kernels)), flush=True)
 
 
@@ -1034,10 +1241,14 @@ def main():
                       "direct_step")
     fixed = fixed_t.cpu().numpy()
     counts["pipeline"], vols_per_s = phase_pipeline(card, dev, fixed)
+    counts["pipeline_defaults"], vols_defaults = phase_pipeline(
+        card, dev, fixed, defaults=True)
     if args.profile:
         frames = recording(fixed, PIPELINE_T)
         phase_profile(lambda: run_pipeline(frames, fixed, True, dev),
                       "pipeline")
+        phase_profile(lambda: run_pipeline(frames, fixed, True, dev, True),
+                      "pipeline_defaults")
 
     kernels = []
     for row in rows:
@@ -1048,8 +1259,8 @@ def main():
                                    for k, c in counts.items()}
         kernels.append(row)
     log(f"all phases passed; canonical step {step_ms:.1f} ms, direct-API "
-        f"step {direct_ms:.1f} ms, pipeline {vols_per_s:.4f} volumes/s on "
-        f"{card}")
+        f"step {direct_ms:.1f} ms, pipeline {vols_per_s:.4f} volumes/s "
+        f"(OFOptions() defaults {vols_defaults:.4f}) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

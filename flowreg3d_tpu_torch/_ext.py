@@ -30,16 +30,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LL = ctypes.c_longlong
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C signature of every kernel entry point; each returns cudaGetLastError().
 SIGNATURES = {
-    # duvw, sj, P, M, N, ax, ay, az, parity, stream
-    "sor_halfsweep_f32": (_P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
-    # coeff, Ze, Ye, Xe, cz, cy, cx, out, n_out, Z, Y, X, order, stream
-    "map_coords_f32": (_P, _I, _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                       _P),
+    # duvw, sj, P, M, N, ax, ay, az, n_iters, stream
+    "sor_iterations_f32": (_P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
+    # P, M, N, out[5]: the launch plan sor_iterations_f32 takes
+    "sor_iterations_plan": (_I, _I, _I, _IP),
+    # coeff, Ze, Ye, Xe, cz, cy, cx, out, Oz, Oy, Ox, Z, Y, X, order, stream
+    "map_coords_f32": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _P),
     # xp, out, B, Z, Y, X, stream
     "median5_f32": (_P, _P, _I, _I, _I, _I, _P),
     # duvw, base, psi, P, M, N, a, a - 1, 0.5/hx, 0.5/hy, 0.5/hz, stream

@@ -1,15 +1,20 @@
-"""Constant-diffusivity SOR sweeps: the CUDA kernel ``sor_halfsweep_f32``
-(csrc/sor_halfsweep.cu), its plain PyTorch version, and the host side.
+"""Constant-diffusivity SOR tick blocks: the CUDA kernel
+``sor_iterations_f32`` (csrc/sor_halfsweep.cu), its plain PyTorch version,
+and the host side.
 
 Counterpart of ``flowreg3d_tpu/core/solver_pallas.py:sweep_iterations_pallas``
 (and its y-tiled ``_sweep_iterations_ty``). The base flow enters a level's
 update only through its weighted Laplacian, which is constant over the
 level, so the host folds it into the SJ14/24/34 data terms and the kernel
-streams 12 fields: the stacked increments duvw (3,P,M,N) and SJ (9,P,M,N)
-in the order [SJ11,SJ22,SJ33,SJ12,SJ13,SJ23,SJ14,SJ24,SJ34]. One launch
-does one half-sweep; ``sor_halfsweep`` takes the plain version only for
-CPU tensors, and for CUDA tensors launches the kernel or raises.
+reads 12 fields: the stacked increments duvw (3,P,M,N) and SJ (9,P,M,N)
+in the order [SJ11,SJ22,SJ33,SJ12,SJ13,SJ23,SJ14,SJ24,SJ34]. One
+cooperative launch runs a whole tick block (``n_iters`` red+black
+iterations); its plain version is the loop of ``sor_halfsweep_plain``
+half-sweeps. ``sor_iterations`` takes the plain version only for CPU
+tensors, and for CUDA tensors launches the kernel or raises.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -68,30 +73,58 @@ def sor_halfsweep_plain(duvw, sj, ax, ay, az, parity):
     return duvw
 
 
-def sor_halfsweep(duvw, sj, ax, ay, az, parity):
-    """One red (parity 0) or black (1) half-sweep, in place on ``duvw``."""
-    if duvw.device != sj.device:
-        raise ValueError(f"sor_halfsweep: duvw on {duvw.device}, sj on "
-                         f"{sj.device}")
-    if duvw.device.type == "cpu":
-        return sor_halfsweep_plain(duvw, sj, ax, ay, az, parity)
-    _ext.check_cuda(duvw, "sor_halfsweep duvw", 4, torch.float32)
-    _ext.check_cuda(sj, "sor_halfsweep sj", 4, torch.float32)
-    _, P, M, N = duvw.shape
-    if duvw.shape[0] != 3 or sj.shape != (9, P, M, N) or min(P, M, N) < 3:
-        raise ValueError(f"sor_halfsweep: duvw {tuple(duvw.shape)} / sj "
-                         f"{tuple(sj.shape)}; want (3,P,M,N) / (9,P,M,N), "
-                         "P,M,N >= 3")
-    with torch.cuda.device(duvw.device):
-        rc = _ext.lib().sor_halfsweep_f32(
-            duvw.data_ptr(), sj.data_ptr(), P, M, N, float(ax), float(ay),
-            float(az), int(parity), _ext.stream_of(duvw))
-    _ext.raise_on_error(rc, "sor_halfsweep_f32")
-    sor_halfsweep.launches += 1
+def sor_iterations_plain(duvw, sj, ax, ay, az, n_iters):
+    """Plain version of the kernel: ``n_iters`` red+black iterations of
+    ``sor_halfsweep_plain`` in place on ``duvw``."""
+    for _ in range(n_iters):
+        sor_halfsweep_plain(duvw, sj, ax, ay, az, 0)
+        sor_halfsweep_plain(duvw, sj, ax, ay, az, 1)
     return duvw
 
 
-sor_halfsweep.launches = 0
+def sor_iterations(duvw, sj, ax, ay, az, n_iters):
+    """One tick block, ``n_iters`` red (parity 0) + black (1) iterations in
+    place on ``duvw``: one kernel launch on CUDA tensors."""
+    if duvw.device != sj.device:
+        raise ValueError(f"sor_iterations: duvw on {duvw.device}, sj on "
+                         f"{sj.device}")
+    if duvw.device.type == "cpu":
+        return sor_iterations_plain(duvw, sj, ax, ay, az, n_iters)
+    _ext.check_cuda(duvw, "sor_iterations duvw", 4, torch.float32)
+    _ext.check_cuda(sj, "sor_iterations sj", 4, torch.float32)
+    _, P, M, N = duvw.shape
+    if duvw.shape[0] != 3 or sj.shape != (9, P, M, N) or min(P, M, N) < 3:
+        raise ValueError(f"sor_iterations: duvw {tuple(duvw.shape)} / sj "
+                         f"{tuple(sj.shape)}; want (3,P,M,N) / (9,P,M,N), "
+                         "P,M,N >= 3")
+    if n_iters <= 0:
+        return duvw
+    with torch.cuda.device(duvw.device):
+        rc = _ext.lib().sor_iterations_f32(
+            duvw.data_ptr(), sj.data_ptr(), P, M, N, float(ax), float(ay),
+            float(az), int(n_iters), _ext.stream_of(duvw))
+    _ext.raise_on_error(rc, "sor_iterations_f32")
+    sor_iterations.launches += 1
+    return duvw
+
+
+sor_iterations.launches = 0
+
+SOR_MODES = {1: "SJ on chip", 2: "SJ streamed"}
+
+
+def sor_plan(shape, device=None):
+    """How ``sor_iterations_f32`` runs at duvw shape (3,P,M,N) or (P,M,N)
+    on a CUDA device: mode, blocks, threads, rows and shared bytes a
+    block."""
+    P, M, N = shape[-3:]
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _ext.raise_on_error(_ext.lib().sor_iterations_plan(P, M, N, out),
+                            "sor_iterations_plan")
+    mode, blocks, threads, rows, smem = out
+    return dict(mode=SOR_MODES[mode], blocks=blocks, threads=threads,
+                rows_per_block=rows, shared_bytes=smem)
 
 
 def base_laplacian(b, ax, ay, az):
@@ -113,10 +146,7 @@ def fold_base(SJ, laps):
 
 
 def sweep_iterations(duvw, sj, ax, ay, az, n_iters, use_kernels=True):
-    """``n_iters`` red+black iterations in place: 2 launches an iteration
-    (``use_kernels=False``: the plain version on any device)."""
-    sweep = sor_halfsweep if use_kernels else sor_halfsweep_plain
-    for _ in range(n_iters):
-        sweep(duvw, sj, ax, ay, az, 0)
-        sweep(duvw, sj, ax, ay, az, 1)
-    return duvw
+    """One tick block of ``n_iters`` red+black iterations in place: one
+    launch (``use_kernels=False``: the plain version on any device)."""
+    sweep = sor_iterations if use_kernels else sor_iterations_plain
+    return sweep(duvw, sj, ax, ay, az, n_iters)

@@ -83,6 +83,27 @@ def map_coordinates_linear(vol, coord_z, coord_y, coord_x, use_kernels=True):
     return sample(_pad_far_edge(vol), coord_z, coord_y, coord_x, 1)
 
 
+def sample_coords(u, v, w):
+    """Sampling coordinates (cz, cy, cx) of a backward warp by the (Z,Y,X)
+    displacements (u, v, w), clamped to the volume, and the mask of voxels
+    whose displaced position leaves it."""
+    Z, Y, X = u.shape
+    grid_z, grid_y, grid_x = torch.meshgrid(
+        *(torch.arange(n, dtype=u.dtype, device=u.device) for n in (Z, Y, X)),
+        indexing="ij")
+    map_x = grid_x + u
+    map_y = grid_y + v
+    map_z = grid_z + w
+    oob = ((map_x < 0) | (map_x >= X) | (map_y < 0) | (map_y >= Y)
+           | (map_z < 0) | (map_z >= Z))
+    # OOB voxels are overwritten from ``f1`` by the caller; their
+    # coordinates are don't-cares, set to the identity grid
+    cx = torch.where(oob, grid_x, map_x.clamp(0, X - 1)).contiguous()
+    cy = torch.where(oob, grid_y, map_y.clamp(0, Y - 1)).contiguous()
+    cz = torch.where(oob, grid_z, map_z.clamp(0, Z - 1)).contiguous()
+    return cz, cy, cx, oob
+
+
 def warp(f2, u, v, w, f1, order=3, use_kernels=True):
     """Backward-warp ``f2`` by (u, v, w); OOB voxels come from ``f1``.
 
@@ -93,20 +114,8 @@ def warp(f2, u, v, w, f1, order=3, use_kernels=True):
     if squeeze:
         f2 = f2[..., None]
         f1 = f1[..., None]
-    Z, Y, X, C = f2.shape
-    grid_z, grid_y, grid_x = torch.meshgrid(
-        *(torch.arange(n, dtype=u.dtype, device=u.device) for n in (Z, Y, X)),
-        indexing="ij")
-    map_x = grid_x + u
-    map_y = grid_y + v
-    map_z = grid_z + w
-    oob = ((map_x < 0) | (map_x >= X) | (map_y < 0) | (map_y >= Y)
-           | (map_z < 0) | (map_z >= Z))
-    # OOB voxels are overwritten from ``f1`` below; their coordinates are
-    # don't-cares, set to the identity grid
-    cx = torch.where(oob, grid_x, map_x.clamp(0, X - 1)).contiguous()
-    cy = torch.where(oob, grid_y, map_y.clamp(0, Y - 1)).contiguous()
-    cz = torch.where(oob, grid_z, map_z.clamp(0, Z - 1)).contiguous()
+    C = f2.shape[-1]
+    cz, cy, cx, oob = sample_coords(u, v, w)
     sample = {3: map_coordinates_cubic, 1: map_coordinates_linear}[order]
     warped = torch.stack(
         [sample(f2[..., c].contiguous(), cz, cy, cx, use_kernels)

@@ -10,6 +10,8 @@ import torch
 
 from flowreg3d_tpu_torch import _ext
 
+# the kernel indexes coeff and the outputs with 32-bit offsets
+_MAX_ELEMENTS = 2 ** 31 - 1
 
 _SIXTH = 1.0 / 6.0
 
@@ -73,6 +75,12 @@ def map_coords_plain(coeff, cz, cy, cx, order):
     return acc.reshape(cz.shape)
 
 
+def _out_shape(c):
+    """The (Oz, Oy, Ox) volume the kernel tiles: the coordinates' own shape
+    if 3-D, else one row."""
+    return tuple(c.shape) if c.dim() == 3 else (1, 1, c.numel())
+
+
 def map_coords(coeff, cz, cy, cx, order):
     """Sample ``coeff`` at (cz, cy, cx); see ``map_coords_plain``."""
     K = _taps(order)
@@ -88,11 +96,15 @@ def map_coords(coeff, cz, cy, cx, order):
             raise ValueError(f"map_coords: {name} shape {tuple(t.shape)} "
                              f"!= {tuple(cz.shape)}")
     Ze, Ye, Xe = coeff.shape
+    if max(coeff.numel(), cz.numel()) > _MAX_ELEMENTS:
+        raise ValueError(f"map_coords: coeff {tuple(coeff.shape)} or "
+                         f"coordinates {tuple(cz.shape)} exceed 2^31 - 1 "
+                         "elements")
     out = torch.empty_like(cz)
     with torch.cuda.device(coeff.device):
         rc = _ext.lib().map_coords_f32(
             coeff.data_ptr(), Ze, Ye, Xe, cz.data_ptr(), cy.data_ptr(),
-            cx.data_ptr(), out.data_ptr(), cz.numel(), Ze - (K - 1),
+            cx.data_ptr(), out.data_ptr(), *_out_shape(cz), Ze - (K - 1),
             Ye - (K - 1), Xe - (K - 1), order, _ext.stream_of(coeff))
     _ext.raise_on_error(rc, "map_coords_f32")
     map_coords.launches += 1

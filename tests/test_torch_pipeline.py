@@ -195,3 +195,65 @@ def test_unported_requests_raise(base_volume):
                                           input_file=base_volume[None],
                                           reference_frames=base_volume),
                              device="cpu").run()
+
+
+def _epe(w, w_j):
+    return float(np.mean(np.linalg.norm(w.astype(np.float64) - w_j,
+                                        axis=-1)))
+
+
+def _agreement_db(reg, reg_j):
+    """PSNR of one registered recording against the other, data range 1."""
+    mse = float(np.mean((reg.astype(np.float64) - reg_j) ** 2))
+    return np.inf if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+def _two_channel(video5d, base_volume):
+    ref = np.concatenate([base_volume, np.sqrt(base_volume)], axis=-1)
+    video = np.stack([np.roll(ref, (0, s, -s, 0), axis=(0, 1, 2, 3))
+                      for s in range(video5d.shape[0])])
+    return video, ref
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_pipeline_a_smooth_1_matches_jax(video5d, base_volume, C):
+    """The a_smooth == 1 solver's tick blocks end to end, one and two
+    channels, on the accuracy gate's bounds (tests/pipeline/
+    test_accuracy_gate.py): mean flow EPE <= 0.25, registered volumes agree
+    at >= 40 dB."""
+    video, ref, extra = video5d, base_volume, {}
+    if C == 2:
+        video, ref = _two_channel(video5d, base_volume)
+        extra = dict(weight=[0.5, 0.5], sigma=[[1.0, 1.0, 1.0, 0.1]] * 2)
+    opts = fast_options(a_smooth=1.0, **extra)
+    reg_j, w_j = jax_compensate_3d(video, ref, options=opts,
+                                   config=JAX_CONFIG)
+    reg, w = compensate_arr_3D(video, ref, options=options_from_jax(opts),
+                               device="cpu")
+    assert reg.shape == video.shape and w.shape == video.shape[:4] + (3,)
+    assert _epe(w, w_j) <= 0.25
+    assert _agreement_db(reg, reg_j) >= 40.0
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_pipeline_at_ofoptions_defaults_matches_jax(video5d, base_volume, C):
+    """compensate_arr_3D at OFOptions' own defaults (alpha 0.25, a_smooth
+    1, 100 iterations, update_lag 5, min_level 5): registered volumes agree
+    with the JAX pipeline's at >= 40 dB, the accuracy gate's bound. Its
+    flow bound does not apply here: at these options the case is chaotic
+    under rounding (the JAX pipeline against itself on input scaled by
+    1 + 2**-22 moves the flow by more than that bound), so the flows are
+    not compared, as the canonical step's are not on the card."""
+    from flowreg3d_tpu.pipeline import OFOptions as JaxOptions
+
+    from flowreg3d_tpu_torch.pipeline import OFOptions
+
+    video, ref = ((video5d, base_volume) if C == 1
+                  else _two_channel(video5d, base_volume))
+    reg_j, w_j = jax_compensate_3d(video, ref, options=JaxOptions(),
+                                   config=JAX_CONFIG)
+    reg, w = compensate_arr_3D(video, ref, options=OFOptions(), device="cpu")
+    assert reg.shape == reg_j.shape == video.shape
+    assert w.shape == w_j.shape == video.shape[:4] + (3,)
+    assert np.isfinite(w).all() and np.isfinite(reg).all()
+    assert _agreement_db(reg, reg_j) >= 40.0

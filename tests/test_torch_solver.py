@@ -89,7 +89,7 @@ def test_folded_halfsweep_equals_unfolded():
     for parity in (0, 1):
         solver_psi_kernel.halfsweep(unfolded, base, sj_unfolded, ax, ay, az,
                                     parity)
-        solver_kernel.sor_halfsweep(duvw, sj, ax, ay, az, parity)
+        solver_kernel.sor_halfsweep_plain(duvw, sj, ax, ay, az, parity)
         torch.testing.assert_close(duvw[:, 1:-1, 1:-1, 1:-1],
                                    unfolded[:, 1:-1, 1:-1, 1:-1], rtol=1e-12,
                                    atol=1e-12)
@@ -97,9 +97,63 @@ def test_folded_halfsweep_equals_unfolded():
 
 def test_cpu_sweeps_count_no_launch():
     J, weight, u, v, w = _inputs()
-    before = solver_kernel.sor_halfsweep.launches
+    before = solver_kernel.sor_iterations.launches
     _port(J, weight, u, v, w, (1.0,) * 3, [0.45], 1.0, (1.0,) * 3, 5, 5)
-    assert solver_kernel.sor_halfsweep.launches == before
+    assert solver_kernel.sor_iterations.launches == before
+
+
+@pytest.mark.parametrize("iterations,lag,blocks", [
+    (10, 5, [5, 5]), (12, 5, [5, 5, 2]), (3, 5, [3]), (4, 1, [1] * 4)])
+def test_one_kernel_call_per_tick_block(monkeypatch, iterations, lag,
+                                        blocks):
+    """The a_smooth == 1 solver calls the tick-block wrapper once per tick
+    block (one launch on the card), the last block holding the remainder."""
+    calls = []
+    tick_block = solver_kernel.sor_iterations
+
+    def counting(duvw, sj, ax, ay, az, n_iters):
+        calls.append(n_iters)
+        return tick_block(duvw, sj, ax, ay, az, n_iters)
+
+    monkeypatch.setattr(solver_kernel, "sor_iterations", counting)
+    _port(*_inputs(), (1.0,) * 3, [0.45], 1.0, (1.0,) * 3, iterations, lag)
+    assert calls == blocks
+
+
+@pytest.mark.parametrize("n_iters", [5, 3, 1])
+def test_tick_block_equals_plain_halfsweeps(n_iters):
+    """On CPU tensors the tick-block wrapper is bit-equal to the loop of
+    plain red+black half-sweeps it is held to on the card."""
+    rng = np.random.default_rng(5)
+    shape = (7, 9, 11)
+    duvw = torch.from_numpy((0.1 * rng.standard_normal((3,) + shape))
+                            .astype(np.float32))
+    sj = (0.1 * rng.random((9,) + shape)).astype(np.float32)
+    sj[:3] += 0.5
+    sj = torch.from_numpy(sj)
+    ax, ay, az = 1.5, 1.2, 0.8
+    want = duvw.clone()
+    for _ in range(n_iters):
+        solver_kernel.sor_halfsweep_plain(want, sj, ax, ay, az, 0)
+        solver_kernel.sor_halfsweep_plain(want, sj, ax, ay, az, 1)
+    for use_kernels in (True, False):
+        got = duvw.clone()
+        solver_kernel.sweep_iterations(got, sj, ax, ay, az, n_iters,
+                                       use_kernels)
+        assert torch.equal(got, want)
+    # the ring is never written
+    assert torch.equal(got[:, 0], duvw[:, 0])
+    assert torch.equal(got[:, :, :, -1], duvw[:, :, :, -1])
+
+
+@pytest.mark.parametrize("iterations,lag,tol", [(3, 5, 2e-5), (8, 5, 1e-3)])
+def test_remainder_tick_block_against_jax(iterations, lag, tol):
+    """A remainder block alone (one block: the per-call bar) and after a
+    full block (two blocks: the whole-level bar), against the JAX solver."""
+    args = (*_inputs(seed=6), (1.5, 1.2, 1.1), [0.45], 1.0,
+            (1.1, 1.0, 0.9), iterations, lag)
+    for got, want in zip(_port(*args), _jax(*args)):
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
 def test_trailing_channel_layout_matches_channel_leading():

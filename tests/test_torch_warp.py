@@ -88,3 +88,62 @@ def test_float64_plain_path():
     want = jwarp.imregister_wrapper(*(a.astype(np.float32)
                                       for a in (f2, u, v, w, f1)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+
+def _flow_coords(shape, seed, jumps=0.0):
+    """Coordinates of a smooth flow of a few voxels, optionally with sparse
+    far jumps, clipped to the volume."""
+    rng = np.random.default_rng(seed)
+    grids = np.meshgrid(*(np.arange(n, dtype=np.float32) for n in shape),
+                        indexing="ij")
+    coords = []
+    for a, (g, n) in enumerate(zip(grids, shape)):
+        f = 1.5 * np.sin(g / 5.0 + a) + 0.3 * rng.standard_normal(shape)
+        f = f + 30.0 * (rng.random(shape) < jumps)
+        coords.append(np.clip(g + f, 0, n - 1).astype(np.float32))
+    return coords
+
+
+@pytest.mark.parametrize("order", [3, 1])
+@pytest.mark.parametrize("kind", ["ragged", "far jumps", "flat", "planar"])
+def test_map_coords_plain_layouts_vs_scipy(kind, order):
+    """The plain version the kernel is held to, on the layouts the kernel's
+    tiling must cover: a ragged 3-D volume (partial tiles on every axis),
+    sparse far jumps (scattered taps), and coordinates that are not 3-D
+    (the kernel tiles them as one row)."""
+    vol = np.random.default_rng(4).random((13, 21, 35)).astype(np.float32)
+    coords = _flow_coords(vol.shape, 5, 0.01 if kind == "far jumps" else 0.0)
+    shape = {"flat": (-1,), "planar": (13 * 21, 35)}.get(kind, vol.shape)
+    coords = [c.reshape(shape) for c in coords]
+    want = map_coordinates(vol.astype(np.float64), coords, order=order,
+                           mode="nearest")
+    cz, cy, cx = (torch.from_numpy(np.ascontiguousarray(c)) for c in coords)
+    vt = torch.from_numpy(vol)
+    coeff = (twarp.bspline_prefilter(vt) if order == 3
+             else twarp._pad_far_edge(vt).contiguous())
+    got = warp_kernel.map_coords(coeff, cz, cy, cx, order)
+    assert got.shape == cz.shape
+    assert warp_kernel._out_shape(cz) == (
+        tuple(cz.shape) if cz.dim() == 3 else (1, 1, cz.numel()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("amp", [0.0, 3.0, 50.0])
+def test_sample_coords_clamp_and_mask(amp):
+    """The warp's coordinate build: identity grid plus displacement,
+    clamped to the volume, and the mask of voxels displaced outside it."""
+    f2, u, v, w, _ = _case(amp=amp)
+    cz, cy, cx, oob = twarp.sample_coords(*(torch.from_numpy(a)
+                                            for a in (u, v, w)))
+    grids = np.meshgrid(*(np.arange(n, dtype=np.float32) for n in u.shape),
+                        indexing="ij")
+    moved = [g + d for g, d in zip(grids, (w, v, u))]
+    want_oob = np.zeros(u.shape, bool)
+    for m, n in zip(moved, u.shape):
+        want_oob |= (m < 0) | (m >= n)
+    np.testing.assert_array_equal(oob.numpy(), want_oob)
+    for got, m, g, n in zip((cz, cy, cx), moved, grids, u.shape):
+        want = np.where(want_oob, g, np.clip(m, 0, n - 1))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got.is_contiguous()
