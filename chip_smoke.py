@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with an NVIDIA card:
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
                                        # one warm canonical and one warm
-                                       # direct-API step, written under
+                                       # direct-API step and of the
+                                       # pipelines, written under
                                        # chiprun_out/
     python3 chip_smoke.py --ab PARENT  # only: time this checkout against
                                        # an unpacked parent commit's
@@ -38,14 +39,41 @@ Phases:
   5. timings: per kernel launch, plain version, library call, full step;
      5b. the warm direct-API step;
   6. the in-memory pipeline, compensate_arr_3D over a drifting T=4
-     recording with the direct API's flow defaults, kernels against the
-     plain pipeline (use_kernels=False, bit-identical), with launch counts,
-     then its warm volumes/s; 6b. the same at OFOptions' own defaults
-     (a_smooth 1, min_level 5: the SOR tick blocks).
-Then one JSON line of kernels, the card's name and power limit, and the
-last line {"ok": true, "device": {...}}. Any failed check raises, so the
-script exits non-zero; it also exits non-zero without CUDA or without the
-package beside it.
+     recording with the direct API's flow defaults, at the default config
+     (the batched executor replaying one CUDA graph a frame, the
+     device-resident engine), kernels against the plain pipeline
+     (use_kernels=False, bit-identical), with launch counts, the kernels the
+     graph replays counted by the profiler, and the card memory the call
+     leaves held; then the host-staged sequential path
+     (device_resident=False) on the same recording at the quality bounds,
+     both warm volumes/s, and the download of the results through the
+     pipeline's staging (pinned, then copied to pageable memory) against
+     plain pageable copies; 6b. the same at OFOptions' own defaults
+     (a_smooth 1, min_level 5: the SOR tick blocks);
+  7. the executors: T=4 canonical frames at OFOptions() defaults and at
+     the direct API's options through BatchedExecutor3D (CUDA graph)
+     against SequentialExecutor3D (eager), flows and registered volumes
+     compared; capture time, warm ms a frame, host launches a frame (the
+     profiler's runtime calls: kernel launches and graph launches) and the
+     graph's memory;
+  6c. a T=24 u16 recording at OFOptions() defaults (buffer 10: three
+     batches) at the default config, kernels only: warm volumes/s (and,
+     with --profile, the device's busy share);
+  8. the cross-correlation prealignment pipeline (cc_initialization=True,
+     T=4, OFOptions() defaults), kernels against plain, at the pipeline's
+     bounds, with its launches (the order-1 warps of the prealignment
+     counted apart).
+Launch counts: every kernel wrapper counts its launches from the host (a
+capture is taken back out); a CUDA-graph replay launches its kernels
+without the wrappers, so each graph counts its replays, and the kernels
+the replays ran (the graph's launches times its replays) are held, in one
+warm run of each pipeline path, against the kernel executions the
+profiler saw on the card. Then one JSON line of kernels (``launches``:
+host launches; ``replayed_by_path``: the launches graph replays ran), the
+card's name and power limit,
+and the last line {"ok": true, "device": {...}}. Any failed check raises,
+so the script exits non-zero; it also exits non-zero without CUDA or
+without the package beside it.
 """
 
 import argparse
@@ -79,6 +107,17 @@ CONV_SHIFT = (1, 2, -2)            # (z, y, x) roll; flow [dx,dy,dz] = (-2, 2, 1
 # H100 SXM published peaks (dense): HBM bytes/s and fp32 (non-tensor) ops/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+# the __global__ functions of csrc/*.cu, by kernel wrapper, as the
+# profiler names them
+KERNEL_SYMBOLS = {
+    "sor_iterations_f32": r"\bsor_iterations_kernel\b",
+    "map_coords_f32": r"\bmap_coords_kernel\b",
+    "median5_f32": r"\bmedian5_kernel\b",
+    "psi_field_f32": r"\bpsi_field_kernel\b",
+    "sor_halfsweep_psi_f32": r"\bhalfsweep_kernel<true>",
+    "sor_halfsweep_const_f32": r"\bhalfsweep_kernel<false>",
+}
 
 KERNEL_TOL = 2e-5                  # tests/core/test_solver_pallas.py:62,157
 SCIPY_TOL = 2e-4                   # tests/ops/test_warp_pallas.py:58
@@ -550,15 +589,9 @@ def phase_median_shapes(card, dev):
 
 
 def counters():
-    from flowreg3d_tpu_torch.core import solver_kernel, solver_psi_kernel
-    from flowreg3d_tpu_torch.ops import median_kernel, warp_kernel
+    from flowreg3d_tpu_torch import _ext
 
-    return {"sor_iterations_f32": solver_kernel.sor_iterations,
-            "map_coords_f32": warp_kernel.map_coords,
-            "median5_f32": median_kernel.median5,
-            "psi_field_f32": solver_psi_kernel.psi_field,
-            "sor_halfsweep_psi_f32": solver_psi_kernel.halfsweep_psi,
-            "sor_halfsweep_const_f32": solver_psi_kernel.halfsweep}
+    return _ext.launch_counters()
 
 
 def reset_counts():
@@ -915,15 +948,18 @@ def phase_direct(card, dev):
     return launches, fixed_t, moving_t, plain_s
 
 
-def recording(fixed, n_frames, seed=4):
+def recording(fixed, n_frames, seed=4, period=None):
     """T frames of the fixed volume under an integer drift (frame t rolled
-    by ((t+1) % 2, 2(t+1), -(t+1)), so every frame moved) plus Gaussian
-    noise of sigma 0.01; (T, Z, Y, X) float32."""
+    by ((s+1) % 2, 2(s+1), -(s+1)) with s = t, or t % period: a jitter that
+    repeats, so every frame moved) plus Gaussian noise of sigma 0.01;
+    (T, Z, Y, X) float32."""
     rng = np.random.default_rng(seed)
-    frames = [np.roll(fixed, ((t + 1) % 2, 2 * (t + 1), -(t + 1)),
-                      axis=(0, 1, 2))
-              + rng.normal(0.0, 0.01, fixed.shape).astype(np.float32)
-              for t in range(n_frames)]
+    frames = []
+    for t in range(n_frames):
+        s = t if period is None else t % period
+        frames.append(np.roll(fixed, ((s + 1) % 2, 2 * (s + 1), -(s + 1)),
+                              axis=(0, 1, 2))
+                      + rng.normal(0.0, 0.01, fixed.shape).astype(np.float32))
     return np.stack(frames).astype(np.float32)
 
 
@@ -938,91 +974,495 @@ def pipeline_options(defaults):
                      eta=0.8, min_level=0, a_smooth=0.5, a_data=0.45)
 
 
-def run_pipeline(frames, reference, use_kernels, dev, defaults=False):
+def run_pipeline(frames, reference, use_kernels, dev, defaults=False,
+                 options=None, **config):
     """compensate_arr_3D over the recording; returns (registered, flows,
-    seconds)."""
+    seconds, what ran: the engine and the executor). ``config``: fields of
+    RegistrationConfig beside use_kernels (none: the default config)."""
     from flowreg3d_tpu_torch.pipeline import (RegistrationConfig,
                                               compensate_arr_3D)
+    from flowreg3d_tpu_torch.pipeline.corrector import BatchMotionCorrector
 
-    opts = pipeline_options(defaults)
-    t = time.perf_counter()
-    reg, flows = compensate_arr_3D(
-        frames, reference, opts,
-        config=RegistrationConfig(use_kernels=use_kernels), device=dev)
-    return reg, flows, time.perf_counter() - t
+    opts = pipeline_options(defaults) if options is None else options
+    ran = []
+    run = BatchMotionCorrector.run
+
+    def recorded(self, *args, **kwargs):
+        ran.append(self)
+        return run(self, *args, **kwargs)
+
+    BatchMotionCorrector.run = recorded
+    try:
+        t = time.perf_counter()
+        reg, flows = compensate_arr_3D(
+            frames, reference, opts,
+            config=RegistrationConfig(use_kernels=use_kernels, **config),
+            device=dev)
+        seconds = time.perf_counter() - t
+    finally:
+        BatchMotionCorrector.run = run
+    info = dict(resident=getattr(ran[0], "used_device_resident", False),
+                executor=ran[0].executor.name)
+    return reg, flows, seconds, info
+
+
+def per_solve_launches(o, plan, channels=1):
+    """Kernel launches of one flow solve and the raw frame's warp."""
+    from flowreg3d_tpu_torch.core.solver import _blocks
+
+    psi = o.a_smooth != 1.0
+    return {
+        "psi_field_f32": len(plan) * o.iterations * psi,
+        "sor_halfsweep_psi_f32": 2 * len(plan) * o.iterations * psi,
+        "sor_iterations_f32": len(plan) * len(_blocks(o.iterations,
+                                                      o.update_lag))
+        * (not psi),
+        "map_coords_f32": (len(plan) + 1) * channels,
+        "median5_f32": sum(min(size) > 5 for _, size, _ in plan),
+        "sor_halfsweep_const_f32": 0,
+    }
+
+
+def frame_quality(frames, reference, reg, flows):
+    """Per frame: PSNR of the registered volume against the reference,
+    improvement ratio, mean displacement."""
+    from flowreg3d_tpu_torch.pipeline import flow_statistics
+
+    check(reg.shape == frames.shape and flows.shape == frames.shape + (3,)
+          and np.isfinite(reg).all() and np.isfinite(flows).all(),
+          f"pipeline output {reg.shape} {flows.shape} or non-finite")
+    return dict(
+        psnr=[psnr(reference, r) for r in reg],
+        improvement=[mse(f, reference) / mse(r, reference)
+                     for f, r in zip(frames, reg)],
+        mean_disp=flow_statistics(flows)["mean_disp"])
+
+
+def check_quality(k, p, tag):
+    """Kernel run ``k`` against reference run ``p`` (frame_quality dicts):
+    PSNR within 0.5 dB, improvement within 2% and > 1, mean_disp within
+    2%."""
+    for t in range(len(p["psnr"])):
+        check(abs(k["psnr"][t] - p["psnr"][t]) <= 0.5,
+              f"{tag} frame {t}: PSNR {k['psnr'][t]} vs {p['psnr'][t]}")
+        check(abs(k["improvement"][t] - p["improvement"][t])
+              <= 0.02 * p["improvement"][t],
+              f"{tag} frame {t}: improvement {k['improvement'][t]} vs "
+              f"{p['improvement'][t]}")
+        check(k["improvement"][t] > 1 and p["improvement"][t] > 1,
+              f"{tag} frame {t}: no improvement")
+        check(abs(k["mean_disp"][t] - p["mean_disp"][t])
+              <= 0.02 * abs(p["mean_disp"][t]),
+              f"{tag} frame {t}: mean_disp {k['mean_disp'][t]} vs "
+              f"{p['mean_disp'][t]}")
+
+
+def download_times(dev, arrays, n=2):
+    """Host seconds to bring ``arrays`` (uploaded here) down: pageable
+    ``.cpu()`` copies, and the pipeline's ``HostStaging`` (page-locked
+    buffers reused, non_blocking copies, one sync, then a copy into
+    pageable memory); best of n after a warm pass each."""
+    import torch
+
+    from flowreg3d_tpu_torch.pipeline.device_pipeline import HostStaging
+
+    tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+    staging = HostStaging(pinned=True)
+    ways = {"pageable": lambda: [x.cpu().numpy() for x in tensors],
+            "staged": lambda: staging.download(tensors)}
+    out = {}
+    for tag, way in ways.items():
+        times = []
+        for _ in range(n + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            way()
+            times.append(time.perf_counter() - t)
+        out[tag] = min(times[1:])
+    check(all(b.is_pinned() for b in staging.buffers),
+          "download staging buffers are not page-locked")
+    return out
+
+
+def replayed(graph):
+    """Kernel launches the graph's replays ran, by wrapper."""
+    return {k: graph.launches.get(k, 0) * graph.replays
+            for k in KERNEL_SYMBOLS}
+
+
+def check_device_counts(tag, work, graph):
+    """One run of ``work`` (which reuses ``graph``) under the profiler: the
+    kernel executions the card ran, by wrapper, must equal the wrappers'
+    host launches plus the launches the graph's replays ran."""
+    replays = graph.replays
+    reset_counts()
+    _, device, _ = profiled(work)
+    host = read_counts()
+    n = graph.replays - replays
+    want = {k: host[k] + graph.launches.get(k, 0) * n
+            for k in KERNEL_SYMBOLS}
+    log(f"  {tag}: profiled warm run: {n} replays, host launches {host}, "
+        f"kernel executions on the card {device}")
+    check(n > 0 and device == want, f"{tag}: the card ran {device}, the "
+          f"host launches and {n} replays account for {want}")
+
+
+def pinned_host_stats():
+    """PyTorch's page-locked host allocator: bytes it holds allocated and
+    the cudaHostAlloc calls it has made, where this PyTorch reports them."""
+    import torch
+
+    stats = (torch.cuda.host_memory_stats()
+             if hasattr(torch.cuda, "host_memory_stats") else {})
+    return {k: v for k, v in stats.items()
+            if k in ("allocated_bytes.current", "num_host_alloc")}
+
+
+def card_memory(tag):
+    """Log the card memory a finished pipeline call leaves held (then with
+    the allocator's cache emptied: what the cached graph's pool and live
+    tensors hold), and the page-locked host memory PyTorch holds."""
+    import torch
+
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    log(f"  {tag}: after the call {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated, {reserved / 2**30:.2f} GiB reserved on the card, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB with the "
+        f"allocator's cache emptied; pinned host memory "
+        f"{pinned_host_stats() or 'not reported'}")
 
 
 def phase_pipeline(card, dev, fixed, defaults=False):
-    """The in-memory pipeline over a drifting recording, kernels against
-    the plain path, then its warm throughput: phase 6 at the direct API's
-    flow options, 6b at OFOptions' own defaults."""
+    """The in-memory pipeline over a drifting recording at the default
+    config, kernels against the plain path; the host-staged sequential path
+    beside it; warm throughput of both and the download pinned against
+    pageable: phase 6 at the direct API's flow options, 6b at OFOptions'
+    own defaults."""
     from flowreg3d_tpu_torch.core.pyramid import level_schedule
-    from flowreg3d_tpu_torch.core.solver import _blocks
-    from flowreg3d_tpu_torch.pipeline import flow_statistics
+    from flowreg3d_tpu_torch.parallel import executors as tex
 
+    tag = "6b" if defaults else "6"
     o = pipeline_options(defaults)
     plan, _, _ = level_schedule(SHAPE, o.eta, o.levels,
                                 o.effective_min_level)
     frames = recording(fixed, PIPELINE_T)
     solves = 2 * PIPELINE_T
-    log(f"phase {'6b' if defaults else 6}: pipeline compensate_arr_3D over "
-        f"T={PIPELINE_T} frames of {SHAPE} (initial w pass + batch: {solves} "
-        f"flow solves), alpha {o.alpha}, a_smooth {o.a_smooth}, min_level "
-        f"{o.min_level}, {o.iterations} iterations, update_lag "
-        f"{o.update_lag}: {len(plan)} levels")
-    ticks = len(plan) * len(_blocks(o.iterations, o.update_lag))
-    psi = o.a_smooth != 1.0
-    expected = {
-        "psi_field_f32": solves * len(plan) * o.iterations * psi,
-        "sor_halfsweep_psi_f32": 2 * solves * len(plan) * o.iterations * psi,
-        "sor_iterations_f32": solves * ticks * (not psi),
-        "map_coords_f32": solves * (len(plan) + 1),
-        "median5_f32": solves * sum(min(size) > 5 for _, size, _ in plan),
-        "sor_halfsweep_const_f32": 0,
-    }
+    log(f"phase {tag}: pipeline compensate_arr_3D over T={PIPELINE_T} frames"
+        f" of {SHAPE} (initial w pass + batch: {solves} flow solves), alpha "
+        f"{o.alpha}, a_smooth {o.a_smooth}, min_level {o.min_level}, "
+        f"{o.iterations} iterations, update_lag {o.update_lag}: {len(plan)} "
+        "levels; default config")
+    per_solve = per_solve_launches(o, plan)
+    tex.clear_frame_graphs()
     reset_counts()
-    reg_k, flows_k, first_s = run_pipeline(frames, fixed, True, dev, defaults)
+    reg_k, flows_k, first_s, info = run_pipeline(frames, fixed, True, dev,
+                                                 defaults)
     launches = read_counts()
-    log(f"  kernel run ({first_s:.2f} s): launches {launches}, expected "
-        f"{expected}")
-    check(launches == expected, f"pipeline launches {launches} != {expected}")
-    reg_p, flows_p, plain_s = run_pipeline(frames, fixed, False, dev,
-                                           defaults)
-
-    def per_frame(reg, flows):
-        check(reg.shape == frames.shape and flows.shape == frames.shape + (3,)
-              and np.isfinite(reg).all() and np.isfinite(flows).all(),
-              f"pipeline output {reg.shape} {flows.shape} or non-finite")
-        return dict(
-            psnr=[psnr(fixed, r) for r in reg],
-            improvement=[mse(f, fixed) / mse(r, fixed)
-                         for f, r in zip(frames, reg)],
-            mean_disp=flow_statistics(flows)["mean_disp"])
-
-    k, p = per_frame(reg_k, flows_k), per_frame(reg_p, flows_p)
+    graphs = tex.frame_graphs()
+    check(info == dict(resident=True, executor="batched"),
+          f"phase {tag}: the default config ran {info}")
+    check(len(graphs) == 1 and graphs[0].replays == solves,
+          f"phase {tag}: {len(graphs)} graphs, replays "
+          f"{[g.replays for g in graphs]}; want 1 graph, {solves} replays")
+    graph = graphs[0]
+    reps = replayed(graph)
+    # from the host, only the capture's warm eager frame launches
+    log(f"  kernel run ({first_s:.2f} s, graph captured in "
+        f"{graph.capture_s:.2f} s, {graph.replays} replays): host launches "
+        f"{launches}, expected {per_solve}; replays ran {reps}")
+    check(launches == per_solve, f"pipeline host launches {launches} != "
+          f"{per_solve}")
+    check(graph.launches == {k: v for k, v in per_solve.items() if v},
+          f"graph holds {graph.launches}, one solve launches {per_solve}")
+    card_memory(f"phase {tag} default config (one graph cached)")
+    check_device_counts(f"phase {tag}", lambda: run_pipeline(
+        frames, fixed, True, dev, defaults), graph)
+    _, _, warm_s, _ = run_pipeline(frames, fixed, True, dev, defaults)
+    check(tex.frame_graphs() == [graph], "the warm run captured again")
+    reg_p, flows_p, plain_s, info_p = run_pipeline(frames, fixed, False, dev,
+                                                   defaults)
+    check(info_p == info, f"plain run ran {info_p}")
+    k = frame_quality(frames, fixed, reg_k, flows_k)
+    p = frame_quality(frames, fixed, reg_p, flows_p)
     log(f"  plain run {plain_s:.2f} s; kernel {k}; plain {p}; max|registered"
         f" diff| {float(np.abs(reg_k - reg_p).max()):.3e}, max|flow diff| "
         f"{float(np.abs(flows_k - flows_p).max()):.3e}")
-    for t in range(PIPELINE_T):
-        check(abs(k["psnr"][t] - p["psnr"][t]) <= 0.5,
-              f"frame {t}: PSNR {k['psnr'][t]} vs {p['psnr'][t]}")
-        check(abs(k["improvement"][t] - p["improvement"][t])
-              <= 0.02 * p["improvement"][t],
-              f"frame {t}: improvement {k['improvement'][t]} vs "
-              f"{p['improvement'][t]}")
-        check(k["improvement"][t] > 1 and p["improvement"][t] > 1,
-              f"frame {t}: no improvement")
-        check(abs(k["mean_disp"][t] - p["mean_disp"][t])
-              <= 0.02 * abs(p["mean_disp"][t]),
-              f"frame {t}: mean_disp {k['mean_disp'][t]} vs "
-              f"{p['mean_disp'][t]}")
+    check_quality(k, p, f"phase {tag} kernel vs plain")
     check(np.array_equal(reg_k, reg_p) and np.array_equal(flows_k, flows_p),
           "pipeline: kernel and plain paths are not bit-identical")
-    _, _, warm_s = run_pipeline(frames, fixed, True, dev, defaults)
+
+    staged_cfg = dict(parallelization="sequential", device_resident=False)
+    reg_s, flows_s, staged_s, info_s = run_pipeline(frames, fixed, True, dev,
+                                                    defaults, **staged_cfg)
+    check(info_s == dict(resident=False, executor="sequential"),
+          f"host-staged run ran {info_s}")
+    s_q = frame_quality(frames, fixed, reg_s, flows_s)
+    same = bool(np.array_equal(reg_k, reg_s)
+                and np.array_equal(flows_k, flows_s))
+    log(f"  host-staged sequential run {staged_s:.2f} s; {s_q}; default "
+        f"config against it: max|registered diff| "
+        f"{float(np.abs(reg_k - reg_s).max()):.3e}, max|flow diff| "
+        f"{float(np.abs(flows_k - flows_s).max()):.3e}, bit-identical {same}")
+    check_quality(k, s_q, f"phase {tag} default config vs host-staged")
+
+    _, _, staged_warm_s, _ = run_pipeline(frames, fixed, True, dev, defaults,
+                                          **staged_cfg)
+    dl = download_times(dev, [reg_k, flows_k])
     log(f"  pipeline warm run: {warm_s:.3f} s for {PIPELINE_T} volumes, "
-        f"{PIPELINE_T / warm_s:.4f} volumes/s ({solves} flow solves); card "
-        f"{card}")
-    return launches, PIPELINE_T / warm_s
+        f"{PIPELINE_T / warm_s:.4f} volumes/s at the default config; "
+        f"host-staged sequential {staged_warm_s:.3f} s, "
+        f"{PIPELINE_T / staged_warm_s:.4f} volumes/s ({solves} flow solves);"
+        f" downloading the registered frames and flows "
+        f"({(reg_k.nbytes + flows_k.nbytes) / 1e6:.0f} MB): pageable "
+        f"{dl['pageable'] * 1e3:.1f} ms, staged (pinned, then pageable) "
+        f"{dl['staged'] * 1e3:.1f} ms; card {card}")
+    tex.clear_frame_graphs()
+    return launches, reps, PIPELINE_T / warm_s
+
+
+def profiled(work):
+    """One run of ``work`` under the profiler: (its result, the port's
+    kernel executions on the card by wrapper, the runtime's launch calls by
+    name: kernel launches, plain and cooperative, and graph launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = work()
+        torch.cuda.synchronize()
+    device = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    host = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k, pattern in KERNEL_SYMBOLS.items():
+                if re.search(pattern, e.key):
+                    device[k] += e.count
+        elif "Launch" in e.key and e.key.startswith(("cuda", "cu")):
+            host[e.key] = e.count
+    return out, device, host
+
+
+
+def phase_executors(card, dev, fixed):
+    """T=4 canonical frames through the batched executor (one CUDA graph a
+    frame) and the sequential one (eager), at OFOptions() defaults and at
+    the direct API's options."""
+    import torch
+
+    from flowreg3d_tpu_torch.parallel import executors as tex
+    from flowreg3d_tpu_torch.pipeline.device_pipeline import preprocess
+
+    log(f"phase 7: executors, T={PIPELINE_T} frames of {SHAPE}: batched "
+        "(CUDA-graph replay) against sequential (eager)")
+    frames = recording(fixed, PIPELINE_T)
+    raw = torch.from_numpy(frames[..., None]).to(dev)
+    ref_raw = torch.from_numpy(fixed[..., None]).to(dev)
+    out = {}
+    for tag, defaults in (("defaults", True), ("direct options", False)):
+        o = pipeline_options(defaults)
+        proc = preprocess(raw, o, ref_raw)
+        ref_proc = preprocess(ref_raw, o)
+        fp = o.to_dict()
+        w_init = torch.zeros(SHAPE + (3,), device=dev)
+        seq = tex.SequentialExecutor3D(device=dev)
+        bat = tex.BatchedExecutor3D(device=dev)
+
+        def run(ex):
+            r = ex.process_batch(raw, proc, ref_raw, ref_proc, w_init,
+                                 "cubic", None, fp)
+            torch.cuda.synchronize()
+            return r
+
+        tex.clear_frame_graphs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_alloc = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        reg_b, flow_b = run(bat)
+        first_b = time.perf_counter() - t
+        graph = tex.frame_graphs()[-1]
+        peak = torch.cuda.max_memory_allocated() - base_alloc
+        del reg_b, flow_b
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - base_alloc
+        reserved = torch.cuda.memory_reserved() - base_reserved
+        reg_b, flow_b = run(bat)
+        reg_s, flow_s = run(seq)
+        d_flow = float((flow_b - flow_s).abs().max())
+        d_reg = float((reg_b - reg_s).abs().max())
+        same = bool(torch.equal(flow_b, flow_s) and torch.equal(reg_b, reg_s))
+        fixed_np = fixed
+        q = {name: dict(
+            psnr=[psnr(fixed_np, r[..., 0].cpu().numpy()) for r in reg],
+            improvement=[mse(f, fixed_np) / mse(r[..., 0].cpu().numpy(),
+                                                fixed_np)
+                         for f, r in zip(frames, reg)])
+             for name, reg in (("batched", reg_b), ("sequential", reg_s))}
+        for t_ in range(PIPELINE_T):
+            kq, sq = q["batched"], q["sequential"]
+            check(abs(kq["psnr"][t_] - sq["psnr"][t_]) <= 0.5,
+                  f"phase 7 {tag} frame {t_}: PSNR {kq['psnr'][t_]} vs "
+                  f"{sq['psnr'][t_]}")
+            check(abs(kq["improvement"][t_] - sq["improvement"][t_])
+                  <= 0.02 * sq["improvement"][t_],
+                  f"phase 7 {tag} frame {t_}: improvement")
+        ms = {}
+        for name, ex in (("batched", bat), ("sequential", seq)):
+            t = time.perf_counter()
+            run(ex)
+            ms[name] = 1e3 * (time.perf_counter() - t) / PIPELINE_T
+        calls = {name: profiled(lambda: run(ex))[2]
+                 for name, ex in (("batched", bat), ("sequential", seq))}
+        per_frame = {name: {k: v / PIPELINE_T for k, v in c.items()}
+                     for name, c in calls.items()}
+        log(f"  {tag}: batched vs sequential max|flow diff| {d_flow:.3e}, "
+            f"max|registered diff| {d_reg:.3e}, bit-identical {same}; "
+            f"quality {q}")
+        log(f"  {tag}: capture {graph.capture_s:.3f} s (first batched run "
+            f"{first_b:.2f} s), graph holds {graph.launches} kernel "
+            f"launches, {graph.replays} replays; memory: peak "
+            f"{peak / 2**30:.2f} GiB allocated in the first batched run "
+            f"(capture included), held by the graph after it "
+            f"{held / 2**30:.2f} GiB allocated (static buffers and "
+            f"outputs), {reserved / 2**30:.2f} GiB reserved (with its "
+            f"private pool)")
+        log(f"  {tag}: warm ms a frame batched {ms['batched']:.2f}, "
+            f"sequential {ms['sequential']:.2f}; host launch calls a frame "
+            f"batched {per_frame['batched']}, sequential "
+            f"{per_frame['sequential']}; card {card}")
+        out[tag] = dict(same=same, ms=ms, calls=per_frame)
+        del reg_b, flow_b, reg_s, flow_s, proc, ref_proc
+        tex.clear_frame_graphs()
+    return out
+
+
+def phase_pipeline_long(card, dev, fixed, profile=False, n_frames=24):
+    """A T=24 u16 recording (the T=4 drift repeated) at OFOptions()
+    defaults (buffer 10: three batches; the initial w from the first batch;
+    output_typename 'double') at the default config, kernels only: warm
+    volumes/s."""
+    from flowreg3d_tpu_torch.parallel import executors as tex
+    from flowreg3d_tpu_torch.pipeline import OFOptions
+
+    o = OFOptions()
+    frames = np.clip(np.rint(recording(fixed, n_frames, period=PIPELINE_T)
+                             * 10000), 0, 65535).astype(np.uint16)
+    reference = fixed * 10000.0
+    log(f"phase 6c: pipeline over a T={n_frames} u16 recording of {SHAPE} at"
+        f" OFOptions() defaults (buffer {o.buffer_size}), default config")
+    reset_counts()
+    reg, flows, first_s, info = run_pipeline(frames, reference, True, dev,
+                                             options=o)
+    launches = read_counts()
+    check(info == dict(resident=True, executor="batched"),
+          f"phase 6c ran {info}")
+    # cast to u16 on the card, then to 'double' on the host
+    check(reg.dtype == np.float64 and np.array_equal(reg, np.rint(reg))
+          and reg.shape == frames.shape and reg.max() <= 65535
+          and flows.shape == frames.shape + (3,)
+          and np.isfinite(flows).all(), f"phase 6c output {reg.dtype} "
+          f"{reg.shape} {flows.shape}: not u16 values, or non-finite flows")
+    improvement = [mse(f, reference) / mse(r, reference)
+                   for f, r in zip(frames, reg)]
+    check(min(improvement) > 1, f"phase 6c: no improvement {improvement}")
+    graph = tex.frame_graphs()[0]
+    reps = replayed(graph)
+    for name in ("sor_iterations_f32", "map_coords_f32", "median5_f32"):
+        check(launches[name] > 0 and reps[name] > 0,
+              f"phase 6c: {name} not launched ({launches}, replays {reps})")
+    del reg, flows
+    pinned = pinned_host_stats()
+    _, _, warm_s, _ = run_pipeline(frames, reference, True, dev, options=o)
+    pinned_after = pinned_host_stats()
+    log(f"  pinned host memory around the warm run (three batches): before "
+        f"{pinned}, after {pinned_after}")
+    if "num_host_alloc" in pinned:
+        # one staging buffer per output: frames, stats, valid flags, flows
+        check(pinned_after["num_host_alloc"] - pinned["num_host_alloc"] <= 4,
+              f"phase 6c: the warm run pinned {pinned} -> {pinned_after}")
+    log(f"  first run {first_s:.2f} s, host launches {launches}, replays "
+        f"ran {reps}; improvement "
+        f"{[round(x, 3) for x in improvement]}; warm run {warm_s:.3f} s, "
+        f"{n_frames / warm_s:.4f} volumes/s; card {card}")
+    if profile:
+        phase_profile(lambda: run_pipeline(frames, reference, True, dev,
+                                           options=o), "pipeline_T24")
+    return launches, reps, n_frames / warm_s
+
+
+def phase_cc(card, dev, fixed):
+    """The cc prealignment pipeline at OFOptions() defaults, kernels against
+    plain; the order-1 (prealignment) warps counted apart."""
+    from flowreg3d_tpu_torch.core.pyramid import level_schedule
+    from flowreg3d_tpu_torch.ops import warp as tw
+    from flowreg3d_tpu_torch.parallel import executors as tex
+    from flowreg3d_tpu_torch.pipeline import OFOptions
+
+    o = OFOptions(cc_initialization=True)
+    plan, _, _ = level_schedule(SHAPE, o.eta, o.levels,
+                                o.effective_min_level)
+    frames = recording(fixed, PIPELINE_T)
+    T = PIPELINE_T
+    log(f"phase 8: cc prealignment pipeline, T={T} frames of {SHAPE}, "
+        f"OFOptions(cc_initialization=True) (cc_hw {o.cc_hw}, cc_up "
+        f"{o.cc_up}): the host-staged path, the batched executor")
+    order1 = [0]
+    sample = tw.map_coords
+
+    def counted(coeff, cz, cy, cx, order):
+        order1[0] += order == 1
+        return sample(coeff, cz, cy, cx, order)
+
+    per_solve = per_solve_launches(o, plan)
+    # from the host: no initial-w pass under cc; the capture's warm frame;
+    # 2 prealignment warps and one final warp a frame
+    expected = dict(per_solve)
+    expected["map_coords_f32"] += 3 * T
+    tex.clear_frame_graphs()
+    reset_counts()
+    tw.map_coords = counted
+    try:
+        reg_k, flows_k, first_s, info = run_pipeline(frames, fixed, True,
+                                                     dev, options=o)
+    finally:
+        tw.map_coords = sample
+    launches = read_counts()
+    check(info == dict(resident=False, executor="batched"),
+          f"phase 8 ran {info}")
+    graph = tex.frame_graphs()[0]
+    reps = replayed(graph)
+    log(f"  kernel run ({first_s:.2f} s): host launches {launches} (order-1 "
+        f"prealignment warps {order1[0]}), expected {expected}; "
+        f"{graph.replays} replays ran {reps}")
+    check(launches == expected and order1[0] == 2 * T
+          and graph.replays == T,
+          f"cc launches {launches}, order 1 {order1[0]}, replays "
+          f"{graph.replays}; want {expected}, {2 * T}, {T}")
+    check_device_counts("phase 8", lambda: run_pipeline(
+        frames, fixed, True, dev, options=o), graph)
+    _, _, warm_s, _ = run_pipeline(frames, fixed, True, dev, options=o)
+    check(tex.frame_graphs() == [graph], "the warm run captured again")
+    reg_p, flows_p, plain_s, _ = run_pipeline(frames, fixed, False, dev,
+                                              options=o)
+    k = frame_quality(frames, fixed, reg_k, flows_k)
+    p = frame_quality(frames, fixed, reg_p, flows_p)
+    log(f"  plain run {plain_s:.2f} s; kernel {k}; plain {p}; max|registered"
+        f" diff| {float(np.abs(reg_k - reg_p).max()):.3e}, max|flow diff| "
+        f"{float(np.abs(flows_k - flows_p).max()):.3e}")
+    check_quality(k, p, "phase 8 kernel vs plain")
+    check(np.array_equal(reg_k, reg_p) and np.array_equal(flows_k, flows_p),
+          "cc pipeline: kernel and plain paths are not bit-identical")
+    log(f"  cc pipeline warm run: {warm_s:.3f} s, {T / warm_s:.4f} "
+        f"volumes/s; card {card}")
+    tex.clear_frame_graphs()
+    return launches, reps, T / warm_s
 
 
 def phase_direct_timing(card, fixed_t, moving_t, n=3):
@@ -1106,7 +1546,9 @@ def phase_profile(work, tag):
 def ab_child(tree):
     """One timing pass of the port found in checkout ``tree``: the warm
     canonical and direct-API steps (15 times each), the warm pipeline at the
-    direct API's options and at OFOptions() defaults (twice each), and
+    direct API's options and at OFOptions() defaults (twice each; the
+    latter is compensate_arr_3D(frames, ref) with the default options and
+    config, whatever the checkout's defaults are), and
     kernels by CUDA events around back-to-back calls and device only
     through a CUDA graph: the SOR tick block (sweep_iterations, 5
     iterations) at every canonical level and at (66,514,514), the warp at
@@ -1226,7 +1668,7 @@ def main():
     card = card_line()
     phase_build(card)
     rows = phase_kernels(card, dev) + phase_psi_kernels(card, dev)
-    counts = {}
+    counts, replays = {}, {}
     counts["canonical"], fixed_t, moving_t, plain_s = phase_canonical(card,
                                                                       dev)
     phase_convergent(card, dev)
@@ -1240,15 +1682,24 @@ def main():
         phase_profile(lambda: run_step(fixed_t, moving_t, {}, True),
                       "direct_step")
     fixed = fixed_t.cpu().numpy()
-    counts["pipeline"], vols_per_s = phase_pipeline(card, dev, fixed)
-    counts["pipeline_defaults"], vols_defaults = phase_pipeline(
-        card, dev, fixed, defaults=True)
+    del fixed_t, moving_t
+    counts["pipeline"], replays["pipeline"], vols_per_s = phase_pipeline(
+        card, dev, fixed)
+    (counts["pipeline_defaults"], replays["pipeline_defaults"],
+     vols_defaults) = phase_pipeline(card, dev, fixed, defaults=True)
     if args.profile:
         frames = recording(fixed, PIPELINE_T)
-        phase_profile(lambda: run_pipeline(frames, fixed, True, dev),
-                      "pipeline")
-        phase_profile(lambda: run_pipeline(frames, fixed, True, dev, True),
-                      "pipeline_defaults")
+        for tag, defaults in (("pipeline", False),
+                              ("pipeline_defaults", True)):
+            run_pipeline(frames, fixed, True, dev, defaults)   # captures
+            phase_profile(lambda: run_pipeline(frames, fixed, True, dev,
+                                               defaults), tag)
+        del frames
+    executors = phase_executors(card, dev, fixed)
+    (counts["pipeline_T24"], replays["pipeline_T24"],
+     vols_t24) = phase_pipeline_long(card, dev, fixed, profile=args.profile)
+    counts["pipeline_cc"], replays["pipeline_cc"], vols_cc = phase_cc(
+        card, dev, fixed)
 
     kernels = []
     for row in rows:
@@ -1257,10 +1708,16 @@ def main():
         row["launches"] = counts[path][row["name"]] if path in counts else 0
         row["launches_by_path"] = {k: c[row["name"]]
                                    for k, c in counts.items()}
+        row["replayed_by_path"] = {k: c[row["name"]]
+                                   for k, c in replays.items()}
         kernels.append(row)
     log(f"all phases passed; canonical step {step_ms:.1f} ms, direct-API "
-        f"step {direct_ms:.1f} ms, pipeline {vols_per_s:.4f} volumes/s "
-        f"(OFOptions() defaults {vols_defaults:.4f}) on {card}")
+        f"step {direct_ms:.1f} ms, pipeline T={PIPELINE_T} {vols_per_s:.4f} "
+        f"volumes/s (OFOptions() defaults {vols_defaults:.4f}, T=24 u16 "
+        f"{vols_t24:.4f}, cc {vols_cc:.4f}); batched against sequential "
+        f"bit-identical { {k: v['same'] for k, v in executors.items()} }, "
+        f"warm ms a frame { {k: v['ms'] for k, v in executors.items()} } "
+        f"on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

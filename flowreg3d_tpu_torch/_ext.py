@@ -84,10 +84,16 @@ def _digest(srcs):
     return h.hexdigest()[:16]
 
 
+def library_path():
+    """Where the library built from the present sources lies (it may not
+    exist yet)."""
+    return BUILD_DIR / f"libflowreg3d_kernels_{_digest(_sources())}.so"
+
+
 def build():
     """Compile the kernels if needed; returns the shared library's path."""
     srcs = _sources()
-    so = BUILD_DIR / f"libflowreg3d_kernels_{_digest(srcs)}.so"
+    so = library_path()
     if so.exists():
         build_info.update(seconds=0.0, path=str(so))
         return so
@@ -142,3 +148,19 @@ def stream_of(t):
 def raise_on_error(rc, kernel):
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {rc}")
+
+
+def launch_counters():
+    """Every kernel wrapper by kernel name. A wrapper counts each launch of
+    its kernel from the host in its ``launches`` attribute; the launches a
+    CUDA-graph replay runs are counted by the graph
+    (``parallel/executors.py:FrameGraph``)."""
+    from flowreg3d_tpu_torch.core import solver_kernel, solver_psi_kernel
+    from flowreg3d_tpu_torch.ops import median_kernel, warp_kernel
+
+    return {"sor_iterations_f32": solver_kernel.sor_iterations,
+            "map_coords_f32": warp_kernel.map_coords,
+            "median5_f32": median_kernel.median5,
+            "psi_field_f32": solver_psi_kernel.psi_field,
+            "sor_halfsweep_psi_f32": solver_psi_kernel.halfsweep_psi,
+            "sor_halfsweep_const_f32": solver_psi_kernel.halfsweep}

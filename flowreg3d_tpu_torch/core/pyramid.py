@@ -20,7 +20,8 @@ import torch
 
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch.core.motion_tensor import MOTION_TENSORS, pad_edge
-from flowreg3d_tpu_torch.core.solver import compute_flow_level_cl
+from flowreg3d_tpu_torch.core.solver import (compute_flow_level_cl,
+                                             data_exponents)
 from flowreg3d_tpu_torch.ops.median_kernel import (median5_plain,
                                                    median_filter_5x5x5_batched,
                                                    mirror_pad2)
@@ -143,9 +144,12 @@ def build_pyramid(shape, n_channels, alpha, update_lag, iterations,
     p, m, n = shape
     plan, eff_min_level, _ = level_schedule(shape, eta, levels, min_level)
     motion_tensor = MOTION_TENSORS[const_assumption]
-    a_data_arr = np.asarray(
-        a_data if isinstance(a_data, tuple) else (a_data,) * n_channels,
-        dtype=np.float64)
+    # uploaded once here: a level that copied from the host could not be
+    # captured in a CUDA graph (parallel/executors.py)
+    a_vec = data_exponents(
+        np.asarray(a_data if isinstance(a_data, tuple)
+                   else (a_data,) * n_channels, dtype=np.float64),
+        n_channels, dtype, dev)
 
     def pyramid(fixed, moving, uvw, weight):
         for name, t in (("fixed", fixed), ("moving", moving), ("uvw", uvw),
@@ -182,7 +186,7 @@ def build_pyramid(shape, n_channels, alpha, update_lag, iterations,
 
             du, dv, dw = compute_flow_level_cl(
                 Jc, weight_level, u, v, w, alpha_tmp, iterations,
-                update_lag, a_data_arr, a_smooth, hx, hy, hz,
+                update_lag, a_vec, a_smooth, hx, hy, hz,
                 use_kernels=use_kernels)
             if min(size) > 5:
                 du, dv, dw = _median_increments(du, dv, dw, use_kernels)

@@ -88,6 +88,22 @@ def _solve_folded(Jc, weight, a_vec, u, v, w, ax, ay, az, iterations,
     return tuple(set_boundary_3d(duvw[k].clone()) for k in range(3))
 
 
+def data_exponents(a_data, n_channels, dtype, device):
+    """The data term's exponents as a (C,) tensor on ``device``.
+
+    ``a_data``: scalar, sequence or array (uploaded here), or a tensor
+    already on ``device``, passed through. ``build_pyramid`` uploads once
+    per pyramid, so that no level copies from the host: a level must be
+    capturable in a CUDA graph.
+    """
+    if isinstance(a_data, torch.Tensor):
+        a_vec = a_data.to(device=device, dtype=dtype).reshape(-1)
+    else:
+        a_vec = torch.as_tensor(np.asarray(a_data, np.float64).reshape(-1),
+                                dtype=dtype, device=device)
+    return a_vec.expand(n_channels) if a_vec.numel() == 1 else a_vec
+
+
 def compute_flow_level_cl(J_entries, weight, u, v, w, alpha, iterations,
                           update_lag, a_data, a_smooth, hx, hy, hz,
                           use_kernels=True):
@@ -96,15 +112,13 @@ def compute_flow_level_cl(J_entries, weight, u, v, w, alpha, iterations,
     J_entries: 10 tensors (C,p,m,n) [J11,J22,J33,J44,J12,J13,J23,J14,J24,
     J34] or one (10,C,p,m,n) stack; weight (C,p,m,n); u,v,w (p,m,n)
     accumulated flow with its one-voxel ring; alpha 3-sequence; a_data
-    (C,) or scalar. Returns (du, dv, dw), each (p,m,n).
+    (C,) or scalar, or a tensor on the flow's device (``data_exponents``).
+    Returns (du, dv, dw), each (p,m,n).
     """
-    dtype, device = u.dtype, u.device
-    t = _scalar_type(dtype)
-    Jc = torch.stack(list(J_entries)).to(dtype)
-    weight = weight.to(dtype).reshape(Jc.shape[1:])
-    a_vec = torch.as_tensor(np.asarray(a_data, np.float64).reshape(-1),
-                            dtype=dtype, device=device)
-    a_vec = a_vec.expand(Jc.shape[1]) if a_vec.numel() == 1 else a_vec
+    t = _scalar_type(u.dtype)
+    Jc = torch.stack(list(J_entries)).to(u.dtype)
+    weight = weight.to(u.dtype).reshape(Jc.shape[1:])
+    a_vec = data_exponents(a_data, Jc.shape[1], u.dtype, u.device)
     ax, ay, az = (float(t(a) / (t(h) * t(h)))
                   for a, h in zip(np.asarray(alpha, np.float64).reshape(3),
                                   (hx, hy, hz)))

@@ -10,12 +10,15 @@ from flowreg3d_tpu_torch.pipeline.of_options import (ChannelNormalization,
                                                      InterpolationMethod,
                                                      NamingConvention,
                                                      OFOptions, OutputFormat,
-                                                     QualitySetting)
+                                                     QualitySetting,
+                                                     compensate_inplace,
+                                                     get_mcp_schema)
 from flowreg3d_tpu_torch.pipeline.stats import flow_statistics
 
 __all__ = [
     "OFOptions", "OutputFormat", "QualitySetting", "ChannelNormalization",
     "InterpolationMethod", "ConstancyAssumption", "NamingConvention",
     "BatchMotionCorrector", "RegistrationConfig", "compensate_arr",
-    "compensate_arr_3D", "flow_statistics",
+    "compensate_arr_3D", "compensate_inplace", "get_mcp_schema",
+    "flow_statistics",
 ]

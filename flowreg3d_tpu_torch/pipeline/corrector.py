@@ -1,28 +1,37 @@
 """BatchMotionCorrector: the streaming motion-correction engine.
 
-Counterpart of ``flowreg3d_tpu/pipeline/corrector.py``, host-staged path:
-reference setup (raw and preprocessed reference, per-channel weight volume),
-preprocessing ("MATLAB order": normalise against the reference's range,
-then the Gaussian), progress callbacks with task ids, the initial w (mean
-flow of the first <= 22 frames), w_init propagation (mean of the last <= 20
-flows of each batch), per-frame flow statistics, optional reference updating
-(<= 100 compensated frames) and the batch loop.
+Counterpart of ``flowreg3d_tpu/pipeline/corrector.py``: reference setup (raw
+and preprocessed reference, per-channel weight volume), preprocessing
+("MATLAB order": normalise against the reference's range, then the
+Gaussian), progress callbacks with task ids, the initial w (mean flow of the
+first <= 22 frames; zero under cc prealignment), w_init propagation (mean of
+the last <= 20 flows of each batch), per-frame flow statistics, valid-frame
+flags (``save_valid_idx``), optional reference updating (<= 100 compensated
+frames), profiling into a Chrome trace (``profile_dir``) and the batch loop.
 
-Each batch is uploaded once; preprocessing, flows, warps, statistics and
-w_init stay on the device, and the registered frames (and flows, when
-``save_w``) come back once per batch. ``device=None`` means 'cuda'.
+Two engines run a batch. The device-resident one
+(``pipeline/device_pipeline.py``) is the default wherever the configuration
+allows it (``device_resident=None``); ``device_resident=True`` requires it
+and raises where the configuration does not allow it;
+``device_resident=False`` forces the host-staged path: the batch is uploaded
+as float32 and the registered frames are cast on the host. Both engines
+download through the run's ``HostStaging`` (one page-locked buffer per
+output on CUDA, sized to one batch, reused by every batch and freed when
+the run ends). ``used_device_resident`` reports which engine ran.
+``device=None`` means 'cuda'.
 
-Not ported yet, and raising where asked for (ROADMAP.md Queue 1 items 8-10,
-12): checkpoint/resume, prefetch, the async writer, profiling, the
-device-resident engine, flow backends, cross-correlation initialisation,
-valid-mask outputs and file formats (so also metadata files). The port's
-``RegistrationConfig`` therefore defaults ``prefetch``, ``async_write`` and
-``device_resident`` to off.
+Not ported yet, and raising where asked for (ROADMAP.md Queue 1 items 8,
+12, 13): checkpoint/resume, prefetch, the async writer, flow backends and
+file formats (so also metadata files and the valid-mask writer). The port's
+``RegistrationConfig`` therefore defaults ``prefetch`` and ``async_write``
+to off.
 """
 
+import os
 import warnings
 from dataclasses import dataclass
-from time import time
+from pathlib import Path
+from time import strftime, time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -30,20 +39,29 @@ import torch
 
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch.io.factory import get_video_file_writer
-from flowreg3d_tpu_torch.ops.filters import apply_gaussian_filter, normalize
-from flowreg3d_tpu_torch.ops.warp import warp
-from flowreg3d_tpu_torch.parallel.executors import get_executor
+from flowreg3d_tpu_torch.parallel.executors import _config_key, get_executor
+from flowreg3d_tpu_torch.pipeline.device_pipeline import (HostStaging,
+                                                          ResidentPipeline,
+                                                          host_cast,
+                                                          preprocess,
+                                                          resident_supported,
+                                                          updated_reference,
+                                                          valid_mask)
 from flowreg3d_tpu_torch.pipeline.of_options import OFOptions
-from flowreg3d_tpu_torch.pipeline.stats import flow_statistics
+from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
 
 
 @dataclass
 class RegistrationConfig:
     """Execution knobs.
 
-    ``parallelization``: None or 'sequential' (alias 'sequential3d'); the
-    other executors are not ported yet. ``use_kernels``: run the CUDA
-    kernels (True) or their plain PyTorch versions (False).
+    ``parallelization``: None = auto ('batched'), or 'batched' /
+    'sequential' (aliases 'threading3d' / 'sequential3d'); 'mesh' and
+    'spatial' are not ported yet. ``use_kernels``: run the CUDA kernels
+    (True) or their plain PyTorch versions (False). ``device_resident``:
+    None = the resident engine wherever the configuration allows it, True =
+    require it, False = the host-staged path. ``profile_dir``: write a
+    torch.profiler Chrome trace of the run there.
     """
 
     verbose: bool = False
@@ -53,7 +71,7 @@ class RegistrationConfig:
     profile_dir: Optional[str] = None
     prefetch: int = 0
     async_write: bool = False
-    device_resident: Optional[bool] = False
+    device_resident: Optional[bool] = None
     get_displacement_func: Optional[Callable] = None
     flow_backend: Optional[str] = None
 
@@ -61,10 +79,8 @@ class RegistrationConfig:
 # config field -> (the values that ask for nothing, where it is queued)
 _NOT_PORTED = {
     "checkpoint": ((False,), "Queue 1 item 8"),
-    "profile_dir": ((None,), "Queue 1 item 8"),
     "prefetch": ((0, None), "Queue 1 item 8"),
     "async_write": ((False,), "Queue 1 item 8"),
-    "device_resident": ((False, None), "Queue 1 item 8"),
     "get_displacement_func": ((None,), "Queue 1 item 13"),
     "flow_backend": ((None, "", "variational"), "Queue 1 item 13"),
 }
@@ -83,12 +99,6 @@ class BatchMotionCorrector:
                     f"RegistrationConfig.{name}={getattr(self.config, name)!r}"
                     " is not ported to flowreg3d_tpu_torch yet (ROADMAP.md "
                     f"{queue})")
-        for name, queue in (("cc_initialization", "Queue 1 item 9"),
-                            ("save_valid_idx", "Queue 1 item 8")):
-            if getattr(options, name):
-                raise NotImplementedError(
-                    f"OFOptions.{name} is not ported to flowreg3d_tpu_torch "
-                    f"yet (ROADMAP.md {queue})")
         self.device = resolve_device(device)
 
         self.mean_disp: List[float] = []
@@ -104,6 +114,10 @@ class BatchMotionCorrector:
         self.video_reader = None
         self.video_writer = None
         self.w_writer = None
+        self.valid_idx: List[bool] = []
+        self._resident = None
+        self._staging = None
+        self.used_device_resident = False   # which engine the last run used
 
         self.progress_callbacks: List[Callable[[int, Optional[int]], None]] = []
         self._progress: Dict[str, Tuple[int, Optional[int]]] = {}
@@ -167,12 +181,7 @@ class BatchMotionCorrector:
         array ``host_frames``, and its result is uploaded as float32."""
         if self.options.preproc_funct is not None:
             return self._upload(self.options.preproc_funct(host_frames))
-        mode = ("separate" if self.options.channel_normalization.value
-                == "separate" else "together")
-        normalized = normalize(frames, ref=normalization_ref,
-                               channel_normalization=mode)
-        return apply_gaussian_filter(normalized,
-                                     np.asarray(self.options.sigma, float))
+        return preprocess(frames, self.options, normalization_ref)
 
     # -- progress -----------------------------------------------------------
 
@@ -196,6 +205,9 @@ class BatchMotionCorrector:
     def _flow_params(self):
         fp = self.options.to_dict()
         fp["weight"] = self.weight
+        fp["cc_initialization"] = self.options.cc_initialization
+        fp["cc_hw"] = self.options.cc_hw
+        fp["cc_up"] = self.options.cc_up
         return fp
 
     def _process_batch(self, batch, batch_proc, w_init, task_id="main"):
@@ -209,42 +221,101 @@ class BatchMotionCorrector:
 
     def _compute_initial_w(self, batch, batch_proc):
         Z, Y, X = self.reference_proc.shape[:3]
-        n_init = min(22, batch.shape[0])
         zeros = torch.zeros((Z, Y, X, 3), dtype=torch.float32,
                             device=self.device)
+        if self.options.cc_initialization:
+            return zeros
+        n_init = min(22, batch.shape[0])
         _, w = self._process_batch(batch[:n_init], batch_proc[:n_init], zeros,
                                    task_id="initial_w")
         return w.mean(dim=0)
 
     def _update_reference(self, batch_proc, w):
-        n = min(100, batch_proc.shape[0])
         order = 3 if self.options.interpolation_method.value == "cubic" else 1
-        comp = [warp(batch_proc[t], w[t, ..., 0], w[t, ..., 1], w[t, ..., 2],
-                     self.reference_proc, order, self.config.use_kernels)
-                for t in range(batch_proc.shape[0] - n, batch_proc.shape[0])]
-        self.reference_proc = torch.stack(comp).mean(dim=0)
+        self.reference_proc = updated_reference(batch_proc, w,
+                                                self.reference_proc, order,
+                                                self.config.use_kernels)
 
     @staticmethod
-    def _to_host(registered, dtype):
-        """Download and cast to the input's dtype (integers rounded and
-        clipped)."""
-        out = registered.cpu().numpy()
-        if np.issubdtype(dtype, np.integer):
-            info = np.iinfo(dtype)
-            return np.clip(np.rint(out), info.min, info.max).astype(dtype)
-        return out.astype(dtype, copy=False)
+    def _valid_mask(w):
+        """(T,Z,Y,X) bool tensor: the warp's sample coordinates stayed in
+        bounds (``w`` a (T,Z,Y,X,3) tensor or array)."""
+        return valid_mask(torch.as_tensor(w))
+
+    # -- device-resident engine ---------------------------------------------
+
+    def _setup_resident(self):
+        """The run's download staging, and the resident engine where the
+        configuration allows it. Unlike the JAX package, a failure to build
+        the engine raises instead of warning and taking the host-staged
+        path."""
+        self._staging = HostStaging(pinned=self.device.type == "cuda")
+        self._resident = None
+        if not resident_supported(self.options, self.config, self.executor):
+            if self.config.device_resident is True:
+                raise ValueError(
+                    "device_resident=True but the configuration requires the "
+                    "host-staged path (a custom preproc_funct, a flow "
+                    "backend or cc_initialization)")
+            return
+        fp = self._flow_params()
+        self._resident = ResidentPipeline(
+            self.options, self.executor, self._reference_raw_d,
+            self.reference_proc,
+            self.executor._weight_volume(fp, self.reference_proc),
+            _config_key(self.reference_proc, fp, self.executor.dtype,
+                        self.executor.use_kernels), self._staging)
+
+    def _process_batch_resident(self, batch):
+        """One batch through the resident engine; returns its result
+        dict."""
+        icb = ((lambda n: self._notify(n, "initial_w"))
+               if self.progress_callbacks else None)
+        cb = (lambda n: self._notify(n)) if self.progress_callbacks else None
+        out = self._resident.run_batch(
+            batch, w_init=self.w_init,
+            use_w_init=self.options.update_initialization_w,
+            keep_flows_host=self.w_writer is not None,
+            update_reference=self.options.update_reference,
+            progress_callback=cb, initial_progress_callback=icb)
+        if self.w_init is None:
+            self.w_init = out["initial_w"]
+        if self.options.update_initialization_w:
+            self.w_init = out["w_init"]
+        self.reference_proc = self._resident.ref_proc_d
+        return out
 
     # -- run ----------------------------------------------------------------
 
     def run(self, reference_frame=None):
+        if not self.config.profile_dir:
+            return self._run(reference_frame)
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            out = self._run(reference_frame)
+        trace_dir = Path(self.config.profile_dir)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(
+            trace_dir / f"trace_{strftime('%Y%m%d_%H%M%S')}_{os.getpid()}"
+            ".json"))
+        return out
+
+    def _run(self, reference_frame=None):
         self._setup_io()
         self._setup_reference(reference_frame)
         self._total_frames = len(self.video_reader)
+        self._setup_resident()
+        self.used_device_resident = self._resident is not None
 
         if self.config.verbose:
             print(f"Starting compensation with "
                   f"quality={self.options.quality_setting.value}, "
-                  f"buffer={self.options.buffer_size}")
+                  f"buffer={self.options.buffer_size}, device-resident "
+                  f"{self.used_device_resident}")
 
         batch_idx = 0
         total_frames = 0
@@ -254,33 +325,22 @@ class BatchMotionCorrector:
                 batch_idx += 1
                 t0 = time()
                 batch = self._select_channels(self.video_reader.read_batch())
-                batch_d = self._upload(batch)
-                batch_proc = self._preprocess_frames(
-                    batch_d, batch, normalization_ref=self._reference_raw_d)
-
-                if self.w_init is None:
-                    self.w_init = self._compute_initial_w(batch_d, batch_proc)
-                current_w_init = (self.w_init
-                                  if self.options.update_initialization_w
-                                  else torch.zeros_like(self.w_init))
-
-                registered, w = self._process_batch(batch_d, batch_proc,
-                                                    current_w_init)
-                if self.options.update_initialization_w:
-                    self.w_init = w[-20:].mean(dim=0)
-
-                stats = flow_statistics(w)
-                self.mean_disp.extend(stats["mean_disp"])
-                self.max_disp.extend(stats["max_disp"])
-                self.mean_div.extend(stats["mean_div"])
-                self.mean_translation.extend(stats["mean_translation"])
-
-                self.video_writer.write_frames(
-                    self._to_host(registered, batch.dtype))
+                if self._resident is not None:
+                    out = self._process_batch_resident(batch)
+                    registered, stats = out["registered"], out["stats"]
+                    flows, valid = out["flows"], out["valid"]
+                else:
+                    registered, stats, flows, valid = self._host_staged_batch(
+                        batch)
+                self.mean_disp.extend(stats[:, 0].tolist())
+                self.max_disp.extend(stats[:, 1].tolist())
+                self.mean_div.extend(stats[:, 2].tolist())
+                self.mean_translation.extend(stats[:, 3].tolist())
+                self.video_writer.write_frames(registered)
                 if self.w_writer is not None:
-                    self.w_writer.write_frames(w.cpu().numpy())
-                if self.options.update_reference:
-                    self._update_reference(batch_proc, w)
+                    self.w_writer.write_frames(flows)
+                if self.options.save_valid_idx:
+                    self.valid_idx.extend(valid.tolist())
 
                 total_frames += registered.shape[0]
                 if self.config.verbose:
@@ -289,6 +349,8 @@ class BatchMotionCorrector:
                           f"in {dt:.2f}s ({registered.shape[0] / dt:.1f} fps)")
         finally:
             self.executor.cleanup()
+            self._resident = None
+            self._staging = None
 
         if self.config.verbose:
             dt = time() - start_time
@@ -299,3 +361,29 @@ class BatchMotionCorrector:
                 closer.close()
         return self.reference_raw
 
+    def _host_staged_batch(self, batch):
+        """One batch on the host-staged path: returns (registered numpy in
+        the input dtype, stats (T, 4), flows numpy or None, valid (T,))."""
+        batch_d = self._upload(batch)
+        batch_proc = self._preprocess_frames(
+            batch_d, batch, normalization_ref=self._reference_raw_d)
+
+        if self.w_init is None:
+            self.w_init = self._compute_initial_w(batch_d, batch_proc)
+        current_w_init = (self.w_init if self.options.update_initialization_w
+                          else torch.zeros_like(self.w_init))
+
+        registered, w = self._process_batch(batch_d, batch_proc,
+                                            current_w_init)
+        if self.options.update_initialization_w:
+            self.w_init = w[-20:].mean(dim=0)
+
+        want = [registered, flow_statistics_tensor(w),
+                self._valid_mask(w).flatten(1).all(dim=1)]
+        if self.w_writer is not None:
+            want.append(w)
+        if self.options.update_reference:
+            self._update_reference(batch_proc, w)
+        host = self._staging.download(want)
+        flows = host[3] if self.w_writer is not None else None
+        return host_cast(host[0], batch.dtype), host[1], flows, host[2]

@@ -7,12 +7,15 @@ defaults and enums, the same normalisation of alpha (-> 3-tuple), weight
 the presets to 0/4/6), ``get_sigma_at``, ``get_weight_at``, ``copy``,
 ``to_dict`` and ``get_reference_frame`` for an ndarray or an index list
 (optionally pre-registered with alpha + 2). A dataclass validated once, at
-construction, as the pydantic model is. Not ported yet: TIFF references,
-JSON save/load and the MCP schema (they need the io modules).
+construction, as the pydantic model is. ``get_mcp_schema`` builds the
+model's JSON schema (pydantic's, serialization mode) from the dataclass
+fields; ``compensate_inplace`` is the in-memory entry point. Not ported
+yet: TIFF references and JSON save/load (they need the io modules).
 """
 
 import copy
 import dataclasses
+import typing
 import warnings
 from dataclasses import dataclass, field
 from enum import Enum
@@ -84,6 +87,9 @@ _ENUMS = {
 _INT_RANGES = {"levels": 1, "min_level": -1, "update_lag": 1,
                "iterations": 1, "bin_size": 1, "buffer_size": 1,
                "n_references": 1, "min_frames_per_reference": 1, "cc_up": 1}
+# float field -> (lower bound, lower bound exclusive, upper bound)
+_FLOAT_RANGES = {"eta": (0.0, True, 1.0), "a_smooth": (0.0, False, None),
+                 "a_data": (0.0, True, 1.0)}
 
 
 def _normalize_alpha(v):
@@ -142,7 +148,8 @@ class OFOptions:
     channel_idx: Optional[List[int]] = None
 
     # Flow parameters
-    alpha: Union[float, Tuple[float, ...]] = (0.25, 0.25, 0.25)
+    alpha: Union[float, Tuple[float, float],
+                 Tuple[float, float, float]] = (0.25, 0.25, 0.25)
     weight: Union[List[float], np.ndarray] = field(
         default_factory=lambda: [0.5, 0.5])
     levels: int = 100
@@ -166,7 +173,10 @@ class OFOptions:
     update_reference: bool = False
     n_references: int = 1
     min_frames_per_reference: int = 20
-    preregister_reference: bool = False
+    preregister_reference: bool = field(default=False, metadata={
+        "description": "Pre-register index-list references with alpha+2 "
+                       "before averaging (3D extension of the reference's "
+                       "2D prereg path)"})
 
     # Processing options
     verbose: bool = False
@@ -203,9 +213,7 @@ class OFOptions:
             if v < lo:
                 raise ValueError(f"{name} must be >= {lo}, got {v}")
             setattr(self, name, int(v))
-        for name, lo, lo_open, hi in (("eta", 0.0, True, 1.0),
-                                      ("a_smooth", 0.0, False, None),
-                                      ("a_data", 0.0, True, 1.0)):
+        for name, (lo, lo_open, hi) in _FLOAT_RANGES.items():
             v = float(getattr(self, name))
             if v < lo or (lo_open and v == lo) or (hi is not None and v > hi):
                 raise ValueError(f"{name} out of range: {v}")
@@ -363,3 +371,99 @@ class OFOptions:
                 f"alpha={self.alpha}, levels={self.levels}, "
                 f"min_level={self.effective_min_level})")
 
+
+
+def compensate_inplace(frames, reference, options=None, *, device=None,
+                       config=None, **kwargs):
+    """Compensate (T,Z,Y,X,C) frames against a reference in memory; returns
+    (registered, flows). ``kwargs`` are option fields: they build the
+    options when ``options`` is None, else replace its fields (not
+    re-validated, as the JAX package's ``model_copy(update=...)``)."""
+    from flowreg3d_tpu_torch.pipeline.compensate_arr import compensate_arr
+
+    if options is None:
+        options = OFOptions(**kwargs)
+    elif kwargs:
+        options = options.replace(**kwargs)
+    return compensate_arr(frames, reference, options=options, config=config,
+                          device=device)
+
+
+# -- JSON schema (pydantic's model_json_schema, serialization mode) ----------
+
+# field -> its JSON name (pydantic alias)
+_SCHEMA_ALIASES = {"constancy_assumption": "constancy"}
+# fields the schema leaves out (pydantic excludes them from serialization)
+_SCHEMA_EXCLUDED = ("preproc_funct",)
+# fields whose default is a factory in the JAX model: no default in the schema
+_SCHEMA_FACTORY_DEFAULTS = ("reference_frames",)
+# types pydantic cannot put in a JSON schema: left out of a union
+_NON_JSON = (np.ndarray, VideoReader3D, VideoWriter3D)
+
+
+def _type_schema(tp, defs):
+    origin = typing.get_origin(tp)
+    args = typing.get_args(tp)
+    if origin is Union:
+        parts = [_type_schema(a, defs) for a in args
+                 if a is not type(None) and a not in _NON_JSON]
+        if type(None) in args:
+            parts.append({"type": "null"})
+        return parts[0] if len(parts) == 1 else {"anyOf": parts}
+    if origin in (list, List):
+        return {"items": _type_schema(args[0], defs), "type": "array"}
+    if origin in (tuple, Tuple):
+        items = [_type_schema(a, defs) for a in args]
+        return {"maxItems": len(items), "minItems": len(items),
+                "prefixItems": items, "type": "array"}
+    if isinstance(tp, type) and issubclass(tp, Enum):
+        defs[tp.__name__] = {"enum": [m.value for m in tp],
+                             "title": tp.__name__, "type": "string"}
+        return {"$ref": f"#/$defs/{tp.__name__}"}
+    if tp is Any:
+        return {}
+    return {str: {"type": "string"}, int: {"type": "integer"},
+            float: {"type": "number"}, bool: {"type": "boolean"},
+            Path: {"format": "path", "type": "string"}}[tp]
+
+
+def _json_default(v):
+    if isinstance(v, Enum):
+        return v.value
+    if isinstance(v, Path):
+        return str(v)
+    if isinstance(v, (tuple, list)):
+        return [_json_default(x) for x in v]
+    return v
+
+
+def get_mcp_schema() -> dict:
+    """The options' JSON schema, as the JAX package's pydantic model gives
+    it in serialization mode: properties with their types, defaults, bounds
+    and titles, the enums under ``$defs``."""
+    hints = typing.get_type_hints(OFOptions)
+    defs, props = {}, {}
+    for f in dataclasses.fields(OFOptions):
+        if not f.init or f.name in _SCHEMA_EXCLUDED:
+            continue
+        prop = _type_schema(hints[f.name], defs)
+        if "$ref" not in prop:
+            prop["title"] = f.name.replace("_", " ").title()
+        if f.name not in _SCHEMA_FACTORY_DEFAULTS:
+            default = (f.default_factory()
+                       if f.default is dataclasses.MISSING else f.default)
+            prop["default"] = _json_default(default)
+        if f.name in _INT_RANGES:
+            prop["minimum"] = _INT_RANGES[f.name]
+        if f.name in _FLOAT_RANGES:
+            lo, lo_open, hi = _FLOAT_RANGES[f.name]
+            prop["exclusiveMinimum" if lo_open else "minimum"] = lo
+            if hi is not None:
+                prop["maximum"] = hi
+        if "description" in f.metadata:
+            prop["description"] = f.metadata["description"]
+        props[_SCHEMA_ALIASES.get(f.name, f.name)] = prop
+    return {"$defs": dict(sorted(defs.items())),
+            "additionalProperties": False,
+            "description": OFOptions.__doc__, "properties": props,
+            "title": "OFOptions", "type": "object"}

@@ -5,6 +5,10 @@ Compared exactly: every field after validation (enums by value), the
 quality logic (``quality_setting``, ``effective_min_level``), ``to_dict``,
 ``get_sigma_at`` and ``get_weight_at``; invalid values raise in both.
 ``convert.options_from_jax`` carries a JAX ``OFOptions`` across unchanged.
+``get_mcp_schema`` equals the JAX package's pydantic schema (every
+property's name, type, default and bounds, and the enums), and
+``compensate_inplace`` gives the JAX function's result within the pipeline
+bounds of tests/test_torch_pipeline.py (registered 1e-4, flows 1e-3).
 """
 
 import dataclasses
@@ -15,10 +19,18 @@ import pytest
 
 from flowreg3d_tpu.io.array import ArrayReader3D as JaxArrayReader
 from flowreg3d_tpu.pipeline import OFOptions as JaxOFOptions
+from flowreg3d_tpu.pipeline.of_options import \
+    compensate_inplace as jax_compensate_inplace
+from flowreg3d_tpu.pipeline.of_options import \
+    get_mcp_schema as jax_get_mcp_schema
 
 from flowreg3d_tpu_torch.convert import options_from_jax
 from flowreg3d_tpu_torch.io.array import ArrayReader3D
-from flowreg3d_tpu_torch.pipeline import OFOptions, QualitySetting
+from flowreg3d_tpu_torch.pipeline import (OFOptions, QualitySetting,
+                                          compensate_inplace, get_mcp_schema)
+
+from tests.pipeline.conftest import (base_volume, fast_options,  # noqa: F401
+                                     video5d)
 
 CONSTRUCTIONS = [
     {},
@@ -103,3 +115,31 @@ def test_quality_custom_roundtrip():
     o = OFOptions(min_level=2, quality_setting="fast")
     assert o.quality_setting == QualitySetting.CUSTOM
     assert o._quality_setting_old == QualitySetting.FAST
+
+
+def test_mcp_schema_matches_jax():
+    got, want = get_mcp_schema(), jax_get_mcp_schema()
+    assert list(got["properties"]) == list(want["properties"])
+    for name, prop in want["properties"].items():
+        assert got["properties"][name] == prop, name
+    assert got["$defs"] == want["$defs"]
+    assert {k: v for k, v in got.items() if k != "properties"} == \
+        {k: v for k, v in want.items() if k != "properties"}
+
+
+def test_compensate_inplace_matches_jax(video5d, base_volume):
+    """Options built from keyword fields, and an options object with fields
+    replaced, as the JAX function takes them."""
+    kw = dict(quality_setting="fast", min_level=0, levels=4, iterations=8,
+              alpha=(1.5, 1.5, 1.5), weight=[1.0], sigma=[1.0, 1.0, 1.0, 0.1],
+              a_smooth=0.5)
+    reg_j, w_j = jax_compensate_inplace(video5d[:2], base_volume, **kw)
+    reg, w = compensate_inplace(video5d[:2], base_volume, device="cpu", **kw)
+    np.testing.assert_allclose(reg, reg_j, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(w, w_j, rtol=0, atol=1e-3)
+    opts = options_from_jax(fast_options(a_smooth=0.5, iterations=2))
+    reg2, w2 = compensate_inplace(video5d[:2], base_volume, opts,
+                                  device="cpu", iterations=8)
+    assert opts.iterations == 2
+    np.testing.assert_array_equal(reg2, reg)
+    np.testing.assert_array_equal(w2, w)

@@ -117,6 +117,13 @@ def test_progress_statistics_and_options_untouched(video5d, base_volume):
     reg, w = compensate_arr(video5d[:2], base_volume, options=opts,
                             progress_callback=lambda d, t: seen.append((d, t)),
                             device="cpu")
+    # both executors report per frame
+    assert seen == [(1, 2), (2, 2)]
+    seen.clear()
+    compensate_arr(video5d[:2], base_volume, options=opts,
+                   progress_callback=lambda d, t: seen.append((d, t)),
+                   config=RegistrationConfig(parallelization="sequential"),
+                   device="cpu")
     assert seen == [(1, 2), (2, 2)]
     assert opts.output_format == opts_copy.output_format
     assert opts.save_w == opts_copy.save_w
@@ -174,19 +181,19 @@ def test_symmetric_padding_matches_numpy(n):
 
 
 def test_unported_requests_raise(base_volume):
+    """What is still not ported raises and names its ROADMAP item: the mesh
+    executor, checkpointing, prefetch, flow backends and file formats."""
     opts = options_from_jax(fast_options(a_smooth=0.5))
     with pytest.raises(ValueError):
         compensate_arr(np.empty((0, 2, 2, 2, 1)), base_volume, device="cpu")
-    for cfg in (RegistrationConfig(parallelization="batched"),
-                RegistrationConfig(checkpoint=True),
-                RegistrationConfig(prefetch=2),
-                RegistrationConfig(flow_backend="volraft")):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
+    for cfg, queue in ((RegistrationConfig(parallelization="mesh"),
+                        "item 11"),
+                       (RegistrationConfig(checkpoint=True), "item 8"),
+                       (RegistrationConfig(prefetch=2), "item 8"),
+                       (RegistrationConfig(flow_backend="volraft"),
+                        "item 13")):
+        with pytest.raises(NotImplementedError, match=f"Queue 1 {queue}"):
             BatchMotionCorrector(opts, cfg, device="cpu")
-    for field, queue in (("cc_initialization", "item 9"),
-                         ("save_valid_idx", "item 8")):
-        with pytest.raises(NotImplementedError, match=queue):
-            BatchMotionCorrector(opts.replace(**{field: True}), device="cpu")
     with pytest.raises(ValueError, match="Unknown executor"):
         BatchMotionCorrector(opts, RegistrationConfig(parallelization="gpu9"),
                              device="cpu")
