@@ -62,7 +62,16 @@ Phases:
   8. the cross-correlation prealignment pipeline (cc_initialization=True,
      T=4, OFOptions() defaults), kernels against plain, at the pipeline's
      bounds, with its launches (the order-1 warps of the prealignment
-     counted apart).
+     counted apart);
+  9. the file pipeline: phase 6c's recording written to a TIFF in a
+     temporary directory and read back bit for bit (with and without the
+     read-ahead reader), compensate_recording at OFOptions() defaults and
+     the default config (prefetch 2, the async writer) with TIFF output,
+     equal bit for bit to phase 6c's frames and statistics, its warm
+     volumes/s with and without prefetch and the async writer, a T=8 run
+     interrupted after its first batch and resumed (equal to the
+     uninterrupted run), and the CLI's tiff-reshape --scale against the
+     port's resize on the card.
 Launch counts: every kernel wrapper counts its launches from the host (a
 capture is taken back out); a CUDA-graph replay launches its kernels
 without the wrappers, so each graph counts its replays, and the kernels
@@ -975,10 +984,12 @@ def pipeline_options(defaults):
 
 
 def run_pipeline(frames, reference, use_kernels, dev, defaults=False,
-                 options=None, **config):
+                 options=None, stats=None, **config):
     """compensate_arr_3D over the recording; returns (registered, flows,
     seconds, what ran: the engine and the executor). ``config``: fields of
-    RegistrationConfig beside use_kernels (none: the default config)."""
+    RegistrationConfig beside use_kernels (none: the default config).
+    ``stats``: a dict that receives the run's per-frame mean_disp and
+    max_disp."""
     from flowreg3d_tpu_torch.pipeline import (RegistrationConfig,
                                               compensate_arr_3D)
     from flowreg3d_tpu_torch.pipeline.corrector import BatchMotionCorrector
@@ -1003,6 +1014,8 @@ def run_pipeline(frames, reference, use_kernels, dev, defaults=False,
         BatchMotionCorrector.run = run
     info = dict(resident=getattr(ran[0], "used_device_resident", False),
                 executor=ran[0].executor.name)
+    if stats is not None:
+        stats.update(mean_disp=ran[0].mean_disp, max_disp=ran[0].max_disp)
     return reg, flows, seconds, info
 
 
@@ -1347,7 +1360,9 @@ def phase_pipeline_long(card, dev, fixed, profile=False, n_frames=24):
     """A T=24 u16 recording (the T=4 drift repeated) at OFOptions()
     defaults (buffer 10: three batches; the initial w from the first batch;
     output_typename 'double') at the default config, kernels only: warm
-    volumes/s."""
+    volumes/s. Returns (launches, replays, the recording for phase 9: its
+    frames, reference, registered frames cast back to u16, statistics and
+    volumes/s)."""
     from flowreg3d_tpu_torch.parallel import executors as tex
     from flowreg3d_tpu_torch.pipeline import OFOptions
 
@@ -1358,8 +1373,9 @@ def phase_pipeline_long(card, dev, fixed, profile=False, n_frames=24):
     log(f"phase 6c: pipeline over a T={n_frames} u16 recording of {SHAPE} at"
         f" OFOptions() defaults (buffer {o.buffer_size}), default config")
     reset_counts()
+    stats = {}
     reg, flows, first_s, info = run_pipeline(frames, reference, True, dev,
-                                             options=o)
+                                             options=o, stats=stats)
     launches = read_counts()
     check(info == dict(resident=True, executor="batched"),
           f"phase 6c ran {info}")
@@ -1372,6 +1388,8 @@ def phase_pipeline_long(card, dev, fixed, profile=False, n_frames=24):
     improvement = [mse(f, reference) / mse(r, reference)
                    for f, r in zip(frames, reg)]
     check(min(improvement) > 1, f"phase 6c: no improvement {improvement}")
+    t24 = dict(frames=frames, reference=reference,
+               registered=reg.astype(np.uint16), **stats)
     graph = tex.frame_graphs()[0]
     reps = replayed(graph)
     for name in ("sor_iterations_f32", "map_coords_f32", "median5_f32"):
@@ -1383,6 +1401,12 @@ def phase_pipeline_long(card, dev, fixed, profile=False, n_frames=24):
     pinned_after = pinned_host_stats()
     log(f"  pinned host memory around the warm run (three batches): before "
         f"{pinned}, after {pinned_after}")
+    # the read-ahead thread is on by default: the same warm run without it,
+    # for comparison in this call
+    _, _, warm0_s, _ = run_pipeline(frames, reference, True, dev, options=o,
+                                    prefetch=0)
+    log(f"  warm run without the read-ahead thread (prefetch=0): "
+        f"{warm0_s:.3f} s, {n_frames / warm0_s:.4f} volumes/s")
     if "num_host_alloc" in pinned:
         # one staging buffer per output: frames, stats, valid flags, flows
         check(pinned_after["num_host_alloc"] - pinned["num_host_alloc"] <= 4,
@@ -1394,7 +1418,8 @@ def phase_pipeline_long(card, dev, fixed, profile=False, n_frames=24):
     if profile:
         phase_profile(lambda: run_pipeline(frames, reference, True, dev,
                                            options=o), "pipeline_T24")
-    return launches, reps, n_frames / warm_s
+    t24["volumes_per_s"] = n_frames / warm_s
+    return launches, reps, t24
 
 
 def phase_cc(card, dev, fixed):
@@ -1463,6 +1488,230 @@ def phase_cc(card, dev, fixed):
         f"volumes/s; card {card}")
     tex.clear_frame_graphs()
     return launches, reps, T / warm_s
+
+
+class Interrupted(Exception):
+    """Raised by phase 9 to interrupt a run after its first checkpoint."""
+
+
+def read_tiff(path, prefetch=0, buffer_size=10):
+    """All frames of a TIFF through the port's streaming reader (wrapped in
+    the read-ahead reader when ``prefetch``), batch by batch; returns
+    (frames, seconds)."""
+    from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
+    from flowreg3d_tpu_torch.io.tiff3d import TIFFFileReader3D
+
+    t = time.perf_counter()
+    reader = TIFFFileReader3D(str(path), buffer_size=buffer_size)
+    if prefetch:
+        reader = PrefetchReader3D(reader, prefetch_depth=prefetch)
+    batches = []
+    while reader.has_batch():
+        batches.append(reader.read_batch())
+    reader.close()
+    return np.concatenate(batches), time.perf_counter() - t
+
+
+def write_tiff(path, frames):
+    """The frames through the port's TIFF writer; returns seconds."""
+    from flowreg3d_tpu_torch.io.tiff3d import TIFFFileWriter3D
+
+    t = time.perf_counter()
+    w = TIFFFileWriter3D(str(path))
+    w.write_frames(frames)
+    w.close()
+    return time.perf_counter() - t
+
+
+def phase_file_pipeline(card, dev, t24, profile=False):
+    """Phase 9: the file-based pipeline over phase 6c's T=24 u16 recording,
+    written to a TIFF in a temporary directory: (a) the reader returns it
+    bit for bit, with and without the read-ahead wrapper; (b)
+    compensate_recording at OFOptions() defaults and the default config
+    (batched, resident, prefetch 2, the async writer), TIFF out, equals
+    phase 6c's registered frames and statistics bit for bit, with its
+    launches and (warm, profiled) the card's kernel executions; (c) warm
+    volumes/s with and without prefetch and the async writer; (d) a T=8
+    run interrupted after its first batch and resumed equals the
+    uninterrupted run; (e) the CLI's tiff-reshape --scale equals the
+    port's resize on the card."""
+    import tempfile
+
+    import torch
+
+    from flowreg3d_tpu_torch.cli.main import main as cli_main
+    from flowreg3d_tpu_torch.io._tiff_format import TiffWriter
+    from flowreg3d_tpu_torch.ops.resize import imresize_fused_gauss_cubic3D
+    from flowreg3d_tpu_torch.parallel import executors as tex
+    from flowreg3d_tpu_torch.pipeline import (OFOptions, RegistrationConfig,
+                                              compensate_recording)
+    from flowreg3d_tpu_torch.pipeline.corrector import BatchMotionCorrector
+
+    # (T, Z, Y, X, 1): the TIFF writer reads a 4-D array as one (Z,Y,X,C)
+    # volume
+    frames, reference = t24["frames"][..., None], t24["reference"]
+    T = len(frames)
+    log(f"phase 9: the file pipeline, compensate_recording over phase 6c's "
+        f"T={T} u16 recording of {SHAPE} as a TIFF, OFOptions() defaults, "
+        f"the default config {RegistrationConfig()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        src = tmp / "rec.tif"
+        write_s = write_tiff(src, frames)
+        size = src.stat().st_size
+        with open(src, "rb") as f:
+            magic = f.read(4)
+        # (a) reading back
+        reads = {}
+        for prefetch in (0, 2):
+            got, reads[prefetch] = read_tiff(src, prefetch)
+            check(got.dtype == np.uint16 and np.array_equal(got, frames),
+                  f"phase 9: the TIFF read back (prefetch {prefetch}) is not "
+                  "the recording")
+            del got
+        kind = "BigTIFF" if magic[2] == 43 else "classic TIFF"
+        log(f"  (a) wrote {size / 1e6:.1f} MB ({kind}) in {write_s:.3f} s "
+            f"({size / 1e6 / write_s:.0f} MB/s); read back bit for bit in "
+            f"{reads[0]:.3f} s, with prefetch 2 {reads[2]:.3f} s")
+
+        def run(out, config=None, path=src, **kw):
+            t = time.perf_counter()
+            corr = BatchMotionCorrector(OFOptions(
+                input_file=str(path), output_path=tmp / out,
+                output_format="TIFF", reference_frames=reference, **kw),
+                config, dev)
+            corr.run()
+            return corr, time.perf_counter() - t
+
+        def registered(out):
+            got, _ = read_tiff(tmp / out / "compensated.TIFF")
+            return got
+
+        def check_run(out, tag):
+            got = registered(out)
+            check(got.dtype == np.uint16
+                  and np.array_equal(got[..., 0], t24["registered"]),
+                  f"phase 9 {tag}: the registered TIFF is not phase 6c's "
+                  "registered frames")
+            stats = np.load(tmp / out / "statistics.npz")
+            for key in ("mean_disp", "max_disp"):
+                check(np.array_equal(stats[key], np.asarray(t24[key])),
+                      f"phase 9 {tag}: statistics.npz {key} is not phase "
+                      "6c's")
+
+        # (b) the whole run, cold: the capture's warm frame launches every
+        # kernel from the host, the replays the rest
+        tex.clear_frame_graphs()
+        reset_counts()
+        corr, first_s = run("out")
+        launches = read_counts()
+        check(corr.used_device_resident and corr.executor.name == "batched",
+              f"phase 9 ran resident {corr.used_device_resident}, executor "
+              f"{corr.executor.name}")
+        graph = tex.frame_graphs()[0]
+        reps = replayed(graph)
+        for name in ("sor_iterations_f32", "map_coords_f32", "median5_f32"):
+            check(launches[name] > 0 and reps[name] > 0,
+                  f"phase 9: {name} not launched ({launches}, replays "
+                  f"{reps})")
+        check_run("out", "(b) first run")
+        log(f"  (b) first run {first_s:.2f} s (capture included): host "
+            f"launches {launches}, {graph.replays} replays ran {reps}; the "
+            "registered TIFF and statistics.npz equal phase 6c's bit for "
+            "bit")
+        # (c) warm volumes/s, with and without prefetch and the async writer
+        plain_cfg = RegistrationConfig(prefetch=0, async_write=False)
+        secs = {"default": [], "plain": []}
+        for tag in ("default", "plain", "default", "plain"):
+            _, s = run(f"out_{tag}",
+                       plain_cfg if tag == "plain" else None)
+            secs[tag].append(s)
+            if len(secs[tag]) == 1:
+                check_run(f"out_{tag}", f"(c) {tag}")
+            (tmp / f"out_{tag}" / "compensated.TIFF").unlink()
+        vols = {k: T / min(v) for k, v in secs.items()}
+        log(f"  (c) warm runs (host clock around compensate_recording, the "
+            f"TIFF read and write included): default config "
+            f"{[round(x, 3) for x in secs['default']]} s, best "
+            f"{vols['default']:.4f} volumes/s; prefetch 0 and no async "
+            f"writer {[round(x, 3) for x in secs['plain']]} s, best "
+            f"{vols['plain']:.4f} volumes/s; phase 6c in memory "
+            f"{t24['volumes_per_s']:.4f} volumes/s; card {card}")
+        if profile:
+            phase_profile(lambda: run("out"), "pipeline_file_T24")
+            check_run("out", "(b) profiled run")
+        (tmp / "out" / "compensated.TIFF").unlink()
+        # the card's kernel executions, on the first 8 frames (16 replays:
+        # the profiler's cost grows with the ~8800 kernels a replay runs)
+        src8 = tmp / "rec8.tif"
+        write_tiff(src8, frames[:8])
+        check_device_counts("phase 9", lambda: run("out8", path=src8),
+                            graph)
+
+        # (d) checkpoint: T=8 in two batches, interrupted after the first
+        cfg = RegistrationConfig(checkpoint=True)
+
+        def run8(out):
+            run(out, cfg, path=src8, buffer_size=4)
+
+        run8("full8")
+        save = BatchMotionCorrector._save_checkpoint
+
+        def interrupt(self, frames_done):
+            save(self, frames_done)
+            raise Interrupted(frames_done)
+
+        BatchMotionCorrector._save_checkpoint = interrupt
+        try:
+            run8("resumed8")
+            check(False, "phase 9 (d): the run was not interrupted")
+        except Interrupted as e:
+            check(e.args == (4,), f"phase 9 (d): interrupted at {e.args}")
+        finally:
+            BatchMotionCorrector._save_checkpoint = save
+        ckpt = tmp / "resumed8" / "checkpoint.npz"
+        check(ckpt.exists(), "phase 9 (d): no checkpoint after the interrupt")
+        run8("resumed8")
+        full = registered("full8")
+        resumed = registered("resumed8")
+        check(not ckpt.exists(), "phase 9 (d): the checkpoint is still there")
+        check(full.shape[0] == 8 and np.array_equal(resumed, full[4:]),
+              "phase 9 (d): the resumed run's frames are not the "
+              "uninterrupted run's")
+        s_full = np.load(tmp / "full8" / "statistics.npz")
+        s_res = np.load(tmp / "resumed8" / "statistics.npz")
+        for key in s_full:
+            check(np.array_equal(s_full[key], s_res[key]),
+                  f"phase 9 (d): statistics {key} differ after the resume")
+        log("  (d) a T=8 run (buffer 4) interrupted after its first batch "
+            "and resumed: frames 4-7 and the statistics of all 8 equal the "
+            "uninterrupted run's bit for bit; the checkpoint is gone")
+
+        # (e) the CLI: a flat TIFF, 64 pages a volume, reshaped and scaled
+        flat = tmp / "flat.tif"
+        n_vol, scale = 3, (0.5, 0.5, 0.5)
+        with TiffWriter(str(flat)) as tw:
+            for page in frames[:n_vol, ..., 0].reshape(-1, *SHAPE[1:]):
+                tw.write_page(page)
+        t = time.perf_counter()
+        rc = cli_main(["tiff-reshape", str(flat), str(tmp / "vol.tif"),
+                       "--slices-per-volume", str(SHAPE[0]), "--scale",
+                       *map(str, scale)])
+        cli_s = time.perf_counter() - t
+        check(rc == 0, f"phase 9 (e): tiff-reshape returned {rc}")
+        got, _ = read_tiff(tmp / "vol.tif")
+        size = tuple(max(1, round(n * f)) for n, f in zip(SHAPE, scale[::-1]))
+        want = np.stack([imresize_fused_gauss_cubic3D(
+            torch.from_numpy(v).to(dev), size).cpu().numpy()
+            for v in frames[:n_vol]])
+        check(got.shape == (n_vol,) + size + (1,) and got.dtype == np.uint16
+              and np.array_equal(got, want), f"phase 9 (e): tiff-reshape "
+              f"{got.shape} {got.dtype} is not the port's resize on the card")
+        log(f"  (e) tiff-reshape --scale {scale} of {n_vol} volumes "
+            f"({n_vol * SHAPE[0]} flat pages) on the card in {cli_s:.2f} s: "
+            f"equal to imresize_fused_gauss_cubic3D on the card, {size}")
+    tex.clear_frame_graphs()
+    return launches, reps, vols
 
 
 def phase_direct_timing(card, fixed_t, moving_t, n=3):
@@ -1697,9 +1946,14 @@ def main():
         del frames
     executors = phase_executors(card, dev, fixed)
     (counts["pipeline_T24"], replays["pipeline_T24"],
-     vols_t24) = phase_pipeline_long(card, dev, fixed, profile=args.profile)
+     t24) = phase_pipeline_long(card, dev, fixed, profile=args.profile)
+    vols_t24 = t24["volumes_per_s"]
     counts["pipeline_cc"], replays["pipeline_cc"], vols_cc = phase_cc(
         card, dev, fixed)
+    del fixed
+    (counts["pipeline_file"], replays["pipeline_file"],
+     vols_file) = phase_file_pipeline(card, dev, t24, profile=args.profile)
+    del t24
 
     kernels = []
     for row in rows:
@@ -1714,7 +1968,9 @@ def main():
     log(f"all phases passed; canonical step {step_ms:.1f} ms, direct-API "
         f"step {direct_ms:.1f} ms, pipeline T={PIPELINE_T} {vols_per_s:.4f} "
         f"volumes/s (OFOptions() defaults {vols_defaults:.4f}, T=24 u16 "
-        f"{vols_t24:.4f}, cc {vols_cc:.4f}); batched against sequential "
+        f"{vols_t24:.4f}, cc {vols_cc:.4f}; the file pipeline T=24 "
+        f"{vols_file['default']:.4f}, without prefetch and the async writer "
+        f"{vols_file['plain']:.4f}); batched against sequential "
         f"bit-identical { {k: v['same'] for k, v in executors.items()} }, "
         f"warm ms a frame { {k: v['ms'] for k, v in executors.items()} } "
         f"on {card}")

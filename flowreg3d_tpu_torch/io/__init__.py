@@ -1,6 +1,12 @@
-"""Streaming volumetric I/O: the reader/writer protocol and the in-memory
-array adapters (counterpart of ``flowreg3d_tpu/io``; the file formats are
-not ported yet)."""
+"""Streaming volumetric I/O (counterpart of ``flowreg3d_tpu/io``): the
+VideoReader3D/VideoWriter3D protocol with temporal binning, the in-memory
+array adapters, the format factories, ImageJ hyperstack TIFF on the
+package's own numpy codec (``io/_tiff_format.py``), MATLAB-compatible HDF5,
+MAT v5/v7.3, the multifile/multichannel/subset/folder wrappers, dataset
+discovery, ScanImage metadata, the read-ahead reader and the background
+writer. Host-side numpy only: nothing here touches torch or the device.
+h5py is imported only where an HDF5 or MAT v7.3 file is asked for.
+"""
 
 from flowreg3d_tpu_torch.io.array import ArrayReader3D, ArrayWriter3D
 from flowreg3d_tpu_torch.io.base import VideoReader3D, VideoWriter3D

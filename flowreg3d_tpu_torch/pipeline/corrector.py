@@ -1,13 +1,23 @@
 """BatchMotionCorrector: the streaming motion-correction engine.
 
-Counterpart of ``flowreg3d_tpu/pipeline/corrector.py``: reference setup (raw
-and preprocessed reference, per-channel weight volume), preprocessing
-("MATLAB order": normalise against the reference's range, then the
-Gaussian), progress callbacks with task ids, the initial w (mean flow of the
-first <= 22 frames; zero under cc prealignment), w_init propagation (mean of
-the last <= 20 flows of each batch), per-frame flow statistics, valid-frame
-flags (``save_valid_idx``), optional reference updating (<= 100 compensated
-frames), profiling into a Chrome trace (``profile_dir``) and the batch loop.
+Counterpart of ``flowreg3d_tpu/pipeline/corrector.py``: I/O setup (the
+output directory, the read-ahead ``PrefetchReader3D`` and the background
+``AsyncWriter3D`` around the reader and writer, flows to ``w.h5`` with
+datasets u, v, w when ``save_w``, the valid mask to ``valid_mask.h5`` when
+``save_valid_mask``; a flow or mask writer that cannot be made warns and is
+skipped), reference setup (raw and preprocessed reference, per-channel
+weight volume), preprocessing ("MATLAB order": normalise against the
+reference's range, then the Gaussian), progress callbacks with task ids,
+the initial w (mean flow of the first <= 22 frames; zero under cc
+prealignment), w_init propagation (mean of the last <= 20 flows of each
+batch), per-frame flow statistics, valid-frame flags (``save_valid_idx``),
+optional reference updating (<= 100 compensated frames), checkpoint/resume
+(``checkpoint.npz`` after every batch: frames done, w_init, the references
+and the statistics; a resumed run seeks past the frames done, and its output
+file holds the frames after them), metadata files (``statistics.npz``,
+``reference_frame.npy``, ``valid_idx.npy``), profiling into a Chrome trace
+(``profile_dir``) and the batch loop. ``compensate_recording`` is the
+file-based entry point.
 
 Two engines run a batch. The device-resident one
 (``pipeline/device_pipeline.py``) is the default wherever the configuration
@@ -17,14 +27,13 @@ and raises where the configuration does not allow it;
 as float32 and the registered frames are cast on the host. Both engines
 download through the run's ``HostStaging`` (one page-locked buffer per
 output on CUDA, sized to one batch, reused by every batch and freed when
-the run ends). ``used_device_resident`` reports which engine ran.
-``device=None`` means 'cuda'.
+the run ends) into fresh arrays, which is what lets the async writer hold a
+batch while the next one downloads. ``used_device_resident`` reports which
+engine ran. ``device=None`` means 'cuda'. The reader's thread decodes with
+numpy only; every upload and download stays on the calling thread.
 
-Not ported yet, and raising where asked for (ROADMAP.md Queue 1 items 8,
-12, 13): checkpoint/resume, prefetch, the async writer, flow backends and
-file formats (so also metadata files and the valid-mask writer). The port's
-``RegistrationConfig`` therefore defaults ``prefetch`` and ``async_write``
-to off.
+Not ported yet, and raising where asked for (ROADMAP.md Queue 1 item 13):
+flow backends (``get_displacement_func``, ``flow_backend``).
 """
 
 import os
@@ -38,7 +47,9 @@ import numpy as np
 import torch
 
 from flowreg3d_tpu_torch._device import resolve_device
+from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.io.factory import get_video_file_writer
+from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
 from flowreg3d_tpu_torch.parallel.executors import _config_key, get_executor
 from flowreg3d_tpu_torch.pipeline.device_pipeline import (HostStaging,
                                                           ResidentPipeline,
@@ -47,7 +58,7 @@ from flowreg3d_tpu_torch.pipeline.device_pipeline import (HostStaging,
                                                           resident_supported,
                                                           updated_reference,
                                                           valid_mask)
-from flowreg3d_tpu_torch.pipeline.of_options import OFOptions
+from flowreg3d_tpu_torch.pipeline.of_options import OFOptions, OutputFormat
 from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
 
 
@@ -61,7 +72,10 @@ class RegistrationConfig:
     (True) or their plain PyTorch versions (False). ``device_resident``:
     None = the resident engine wherever the configuration allows it, True =
     require it, False = the host-staged path. ``profile_dir``: write a
-    torch.profiler Chrome trace of the run there.
+    torch.profiler Chrome trace of the run there. ``prefetch``: batches the
+    reader's thread decodes ahead (0: none). ``async_write``: a writer
+    thread encodes file output. ``checkpoint``: write ``checkpoint.npz``
+    after every batch of a file run, and resume from it.
     """
 
     verbose: bool = False
@@ -69,8 +83,8 @@ class RegistrationConfig:
     use_kernels: bool = True
     checkpoint: bool = False
     profile_dir: Optional[str] = None
-    prefetch: int = 0
-    async_write: bool = False
+    prefetch: int = 2
+    async_write: bool = True
     device_resident: Optional[bool] = None
     get_displacement_func: Optional[Callable] = None
     flow_backend: Optional[str] = None
@@ -78,9 +92,6 @@ class RegistrationConfig:
 
 # config field -> (the values that ask for nothing, where it is queued)
 _NOT_PORTED = {
-    "checkpoint": ((False,), "Queue 1 item 8"),
-    "prefetch": ((0, None), "Queue 1 item 8"),
-    "async_write": ((False,), "Queue 1 item 8"),
     "get_displacement_func": ((None,), "Queue 1 item 13"),
     "flow_backend": ((None, "", "variational"), "Queue 1 item 13"),
 }
@@ -114,6 +125,7 @@ class BatchMotionCorrector:
         self.video_reader = None
         self.video_writer = None
         self.w_writer = None
+        self.valid_writer = None
         self.valid_idx: List[bool] = []
         self._resident = None
         self._staging = None
@@ -133,12 +145,42 @@ class BatchMotionCorrector:
 
     # -- setup --------------------------------------------------------------
 
+    def _to_file(self):
+        return self.options.output_format != OutputFormat.ARRAY
+
     def _setup_io(self):
+        output_path = Path(self.options.output_path)
+        if self._to_file():
+            output_path.mkdir(parents=True, exist_ok=True)
         self.video_reader = self.options.get_video_reader()
+        if self.config.prefetch and self.config.prefetch > 0:
+            self.video_reader = PrefetchReader3D(
+                self.video_reader, prefetch_depth=self.config.prefetch)
         self.video_writer = self.options.get_video_writer()
+        if self.config.async_write and self._to_file():
+            self.video_writer = AsyncWriter3D(self.video_writer)
         if self.options.save_w:
-            self.w_writer = get_video_file_writer(None,
-                                                  self.options.output_format)
+            try:
+                if self._to_file():
+                    self.w_writer = get_video_file_writer(
+                        str(output_path / "w.h5"), "HDF5",
+                        dataset_names=["u", "v", "w"])
+                else:
+                    self.w_writer = get_video_file_writer(None, "ARRAY")
+            except Exception as e:
+                warnings.warn(f"Failed to create displacement writer: {e}. "
+                              "Displacements will not be saved.")
+                self.w_writer = None
+                self.options.save_w = False
+        # a voxel is valid when its warp sample stayed in bounds (was not
+        # filled from the reference volume)
+        self.valid_writer = None
+        if self.options.save_valid_mask and self._to_file():
+            try:
+                self.valid_writer = get_video_file_writer(
+                    str(output_path / "valid_mask.h5"), "HDF5")
+            except Exception as e:
+                warnings.warn(f"Failed to create valid-mask writer: {e}.")
 
     def _setup_reference(self, reference_frame=None):
         if reference_frame is None:
@@ -275,6 +317,7 @@ class BatchMotionCorrector:
         out = self._resident.run_batch(
             batch, w_init=self.w_init,
             use_w_init=self.options.update_initialization_w,
+            want_mask=self.valid_writer is not None,
             keep_flows_host=self.w_writer is not None,
             update_reference=self.options.update_reference,
             progress_callback=cb, initial_progress_callback=icb)
@@ -308,6 +351,7 @@ class BatchMotionCorrector:
         self._setup_io()
         self._setup_reference(reference_frame)
         self._total_frames = len(self.video_reader)
+        frames_done = self._resume()
         self._setup_resident()
         self.used_device_resident = self._resident is not None
 
@@ -318,7 +362,7 @@ class BatchMotionCorrector:
                   f"{self.used_device_resident}")
 
         batch_idx = 0
-        total_frames = 0
+        total_frames = frames_done
         start_time = time()
         try:
             while self.video_reader.has_batch():
@@ -328,10 +372,11 @@ class BatchMotionCorrector:
                 if self._resident is not None:
                     out = self._process_batch_resident(batch)
                     registered, stats = out["registered"], out["stats"]
-                    flows, valid = out["flows"], out["valid"]
+                    flows, valid, masks = (out["flows"], out["valid"],
+                                           out["masks"])
                 else:
-                    registered, stats, flows, valid = self._host_staged_batch(
-                        batch)
+                    registered, stats, flows, valid, masks = \
+                        self._host_staged_batch(batch)
                 self.mean_disp.extend(stats[:, 0].tolist())
                 self.max_disp.extend(stats[:, 1].tolist())
                 self.mean_div.extend(stats[:, 2].tolist())
@@ -339,14 +384,22 @@ class BatchMotionCorrector:
                 self.video_writer.write_frames(registered)
                 if self.w_writer is not None:
                     self.w_writer.write_frames(flows)
+                if self.valid_writer is not None:
+                    self.valid_writer.write_frames(masks[..., None])
                 if self.options.save_valid_idx:
                     self.valid_idx.extend(valid.tolist())
 
                 total_frames += registered.shape[0]
+                self._save_checkpoint(total_frames)
                 if self.config.verbose:
                     dt = time() - t0
                     print(f"Batch {batch_idx}: {registered.shape[0]} frames "
                           f"in {dt:.2f}s ({registered.shape[0] / dt:.1f} fps)")
+        except BaseException:
+            # an interrupted run keeps its checkpoint; its threads and files
+            # are closed before the error goes on
+            self._close_streams()
+            raise
         finally:
             self.executor.cleanup()
             self._resident = None
@@ -356,14 +409,14 @@ class BatchMotionCorrector:
             dt = time() - start_time
             print(f"Processed {total_frames} frames in {dt:.2f}s "
                   f"(avg {total_frames / max(dt, 1e-6):.1f} fps)")
-        for closer in (self.video_writer, self.w_writer, self.video_reader):
-            if closer is not None:
-                closer.close()
+        self._save_metadata()
+        self._cleanup()
         return self.reference_raw
 
     def _host_staged_batch(self, batch):
         """One batch on the host-staged path: returns (registered numpy in
-        the input dtype, stats (T, 4), flows numpy or None, valid (T,))."""
+        the input dtype, stats (T, 4), flows numpy or None, valid (T,),
+        masks uint8 (T,Z,Y,X) or None)."""
         batch_d = self._upload(batch)
         batch_proc = self._preprocess_frames(
             batch_d, batch, normalization_ref=self._reference_raw_d)
@@ -378,12 +431,130 @@ class BatchMotionCorrector:
         if self.options.update_initialization_w:
             self.w_init = w[-20:].mean(dim=0)
 
+        mask = self._valid_mask(w)
         want = [registered, flow_statistics_tensor(w),
-                self._valid_mask(w).flatten(1).all(dim=1)]
+                mask.flatten(1).all(dim=1)]
+        if self.valid_writer is not None:
+            want.append(mask.to(torch.uint8))
         if self.w_writer is not None:
             want.append(w)
         if self.options.update_reference:
             self._update_reference(batch_proc, w)
         host = self._staging.download(want)
-        flows = host[3] if self.w_writer is not None else None
-        return host_cast(host[0], batch.dtype), host[1], flows, host[2]
+        masks = host[3] if self.valid_writer is not None else None
+        flows = host[-1] if self.w_writer is not None else None
+        return (host_cast(host[0], batch.dtype), host[1], flows, host[2],
+                masks)
+
+    # -- checkpoint / resume ------------------------------------------------
+
+    def _checkpoint_path(self):
+        return Path(self.options.output_path) / "checkpoint.npz"
+
+    def _save_checkpoint(self, frames_done):
+        """Between batches: the frames done, w_init and the preprocessed
+        reference (downloaded from the device; never inside a capture), the
+        raw reference and the statistics so far. Written to a temporary
+        file and renamed, so an interrupt leaves the previous checkpoint."""
+        if not self.config.checkpoint or not self._to_file():
+            return
+        path = self._checkpoint_path()
+        tmp = path.with_name(path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, frames_done=frames_done,
+                     w_init=(self.w_init.cpu().numpy()
+                             if self.w_init is not None else 0),
+                     reference_raw=self.reference_raw,
+                     reference_proc=self.reference_proc.cpu().numpy(),
+                     mean_disp=np.asarray(self.mean_disp),
+                     max_disp=np.asarray(self.max_disp),
+                     mean_div=np.asarray(self.mean_div),
+                     mean_translation=np.asarray(self.mean_translation),
+                     valid_idx=np.asarray(self.valid_idx, bool))
+        os.replace(tmp, path)
+
+    def _resume(self):
+        """Restore the state of an existing checkpoint and move the reader
+        past the frames it has done; returns their number (0 without a
+        checkpoint). The restored w_init and references are uploaded as
+        float32, as the interrupted run held them, so the run replays the
+        same graph and gives its output bit for bit."""
+        p = self._checkpoint_path()
+        if not (self.config.checkpoint and self._to_file() and p.exists()):
+            return 0
+        with np.load(p, allow_pickle=False) as ckpt:
+            ckpt = dict(ckpt)
+        frames_done = int(ckpt["frames_done"])
+        w_init = np.asarray(ckpt["w_init"], np.float32)
+        self.w_init = self._upload(w_init) if w_init.ndim else None
+        self.reference_raw = np.asarray(ckpt["reference_raw"], np.float64)
+        self._reference_raw_d = self._upload(self.reference_raw)
+        self.reference_proc = self._upload(ckpt["reference_proc"])
+        # the statistics so far, so the metadata of a resumed run matches an
+        # uninterrupted one
+        for key in ("mean_disp", "max_disp", "mean_div", "mean_translation"):
+            if key in ckpt:
+                getattr(self, key).extend(
+                    np.asarray(ckpt[key]).reshape(-1).tolist())
+        if "valid_idx" in ckpt:
+            self.valid_idx.extend(np.asarray(ckpt["valid_idx"], bool)
+                                  .reshape(-1).tolist())
+        if self.config.verbose:
+            print(f"Resuming from checkpoint at frame {frames_done}")
+        # fast-forward without decoding the frames done
+        self.video_reader.seek_frame(frames_done)
+        return frames_done
+
+    # -- teardown -----------------------------------------------------------
+
+    def _save_metadata(self):
+        if not self.options.save_meta_info or not self._to_file():
+            return
+        out = Path(self.options.output_path)
+        try:
+            out.mkdir(parents=True, exist_ok=True)
+            np.savez(out / "statistics.npz",
+                     mean_disp=np.asarray(self.mean_disp),
+                     max_disp=np.asarray(self.max_disp),
+                     mean_div=np.asarray(self.mean_div),
+                     mean_translation=np.asarray(self.mean_translation))
+            np.save(out / "reference_frame.npy", self.reference_raw)
+            if self.options.save_valid_idx:
+                np.save(out / "valid_idx.npy",
+                        np.asarray(self.valid_idx, bool))
+        except Exception as e:
+            warnings.warn(f"Failed to save metadata: {e}")
+
+    def _close_streams(self):
+        """Close the writers (flushing the async one) and the reader; the
+        first error raised is returned."""
+        error = None
+        for closer in (self.video_writer, self.w_writer, self.valid_writer,
+                       self.video_reader):
+            if closer is not None:
+                try:
+                    closer.close()
+                except Exception as e:
+                    error = error or e
+        return error
+
+    def _cleanup(self):
+        """Close the streams; then delete the checkpoint, unless a writer
+        failed (its error is raised)."""
+        error = self._close_streams()
+        if error is not None:
+            raise error
+        p = self._checkpoint_path()
+        if self.config.checkpoint and p.exists():
+            p.unlink()
+
+
+def compensate_recording(options: OFOptions, reference_frame=None,
+                         config: Optional[RegistrationConfig] = None,
+                         device=None):
+    """Register the recording ``options.input_file`` (a file, a folder, a
+    list of channel files, an array or a reader) and write the result to
+    ``options.output_path`` in ``options.output_format``, with the metadata
+    files. Returns the raw reference (Z,Y,X,C). ``device=None`` means
+    'cuda'."""
+    return BatchMotionCorrector(options, config, device).run(reference_frame)

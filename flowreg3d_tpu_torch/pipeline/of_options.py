@@ -5,19 +5,26 @@ defaults and enums, the same normalisation of alpha (-> 3-tuple), weight
 (-> sum 1) and sigma (-> (C, 4)), the same range checks and quality logic
 (``min_level >= 0`` makes the preset CUSTOM; ``effective_min_level`` maps
 the presets to 0/4/6), ``get_sigma_at``, ``get_weight_at``, ``copy``,
-``to_dict`` and ``get_reference_frame`` for an ndarray or an index list
+``to_dict``, the reader and writer (the output file named by the naming
+convention, the CaImAn/Begonia/Suite2p formats on their backends) and
+``get_reference_frame`` for an ndarray, a TIFF file or an index list
 (optionally pre-registered with alpha + 2). A dataclass validated once, at
-construction, as the pydantic model is. ``get_mcp_schema`` builds the
-model's JSON schema (pydantic's, serialization mode) from the dataclass
-fields; ``compensate_inplace`` is the in-memory entry point. Not ported
-yet: TIFF references and JSON save/load (they need the io modules).
+construction, as the pydantic model is. ``save_options`` / ``load_options``
+keep the JAX package's file layout (a dated header line, then the JSON,
+enums as values, an ndarray reference in ``reference_frames.tif`` beside
+it), so a file either package saves loads in the other.
+``get_mcp_schema`` builds the model's JSON schema (pydantic's,
+serialization mode) from the dataclass fields; ``compensate_inplace`` is the
+in-memory entry point.
 """
 
 import copy
 import dataclasses
+import json
 import typing
 import warnings
 from dataclasses import dataclass, field
+from datetime import date
 from enum import Enum
 from pathlib import Path
 from typing import Any, Callable, List, Optional, Tuple, Union
@@ -72,6 +79,13 @@ _QUALITY_MIN_LEVEL = {
     QualitySetting.QUALITY: 0,
     QualitySetting.BALANCED: 4,
     QualitySetting.FAST: 6,
+}
+
+# formats written by another format's writer
+_FORMAT_BACKEND = {
+    OutputFormat.CAIMAN_HDF5: "HDF5",
+    OutputFormat.BEGONIA: "MAT",
+    OutputFormat.SUITE2P_TIFF: "TIFF",
 }
 
 _ENUMS = {
@@ -132,6 +146,14 @@ def _normalize_sigma(v):
             raise ValueError("2D sigma must be (n_channels, 4)")
         return sig.tolist()
     raise ValueError("Sigma must be [sx,sy,sz,st] or (n_channels, 4)")
+
+
+def _read_tiff_pages(path):
+    """All pages of a TIFF file, (N, H, W[, S])."""
+    from flowreg3d_tpu_torch.io._tiff_format import TiffReader
+
+    with TiffReader(str(path)) as tr:
+        return tr.asarray()
 
 
 @dataclass(repr=False)
@@ -222,6 +244,8 @@ class OFOptions:
         self.weight = _normalize_weight(self.weight)
         self.sigma = _normalize_sigma(self.sigma)
         self.output_path = Path(self.output_path)
+        if isinstance(self.cc_hw, list):    # as pydantic reads a JSON pair
+            self.cc_hw = tuple(self.cc_hw)
         # quality logic: an explicit min_level makes the preset CUSTOM
         if self.quality_setting != QualitySetting.CUSTOM:
             self._quality_setting_old = self.quality_setting
@@ -300,15 +324,36 @@ class OFOptions:
             return self._video_writer
         from flowreg3d_tpu_torch.io.factory import get_video_file_writer
 
-        self._video_writer = get_video_file_writer(self.output_file_name,
-                                                   self.output_format)
+        fmt = self.output_format
+        backend = _FORMAT_BACKEND.get(fmt, fmt.value)
+        writer_kwargs = {}
+        if fmt == OutputFormat.CAIMAN_HDF5:
+            # CaImAn convention: a single dataset named 'mov', time-major
+            writer_kwargs = {"dataset_names": "mov",
+                             "dimension_ordering": (1, 2, 3, 0)}
+        if self.output_file_name:
+            filename = self.output_file_name
+        elif fmt == OutputFormat.ARRAY:
+            filename = None
+        else:
+            # MULTIFILE_<FMT> writers split per channel; name by base format
+            ext = backend.split("_")[-1] if backend.startswith("MULTIFILE") \
+                else backend
+            if self.naming_convention == NamingConvention.DEFAULT:
+                filename = str(self.output_path / f"compensated.{ext}")
+            else:
+                reader = self.get_video_reader()
+                stem = Path(getattr(reader, "file_path", "output")).stem
+                filename = str(self.output_path / f"{stem}_compensated.{ext}")
+        self._video_writer = get_video_file_writer(filename, backend,
+                                                   **writer_kwargs)
         return self._video_writer
 
     # -- reference ----------------------------------------------------------
 
     def get_reference_frame(self, video_reader=None, **compensate_kwargs):
-        """Reference volume (Z,Y,X,C): ndarray passthrough, or the mean over
-        an index list (optionally pre-registered with alpha + 2;
+        """Reference volume (Z,Y,X,C): ndarray passthrough, a TIFF file, or
+        the mean over an index list (optionally pre-registered with alpha + 2;
         ``compensate_kwargs``, e.g. ``device``, go to ``compensate_arr``)."""
         if self.n_references > 1:
             warnings.warn("Multi-reference mode repeats a single reference")
@@ -321,9 +366,11 @@ class OFOptions:
             return self.reference_frames
 
         if isinstance(self.reference_frames, (str, Path)):
-            raise NotImplementedError(
-                f"reference file {self.reference_frames}: file references "
-                "are not ported yet (ROADMAP.md Queue 1 item 12)")
+            p = Path(self.reference_frames)
+            if p.suffix.lower() in (".tif", ".tiff"):
+                arr = _read_tiff_pages(p)
+                return arr[0] if arr.shape[0] == 1 else arr
+            raise ValueError(f"Unsupported reference image format: {p.suffix}")
 
         if isinstance(self.reference_frames, list) and video_reader is not None:
             idx = [i for i in self.reference_frames
@@ -350,6 +397,69 @@ class OFOptions:
         compensated, _ = compensate_arr(frames, ref0, options=opts,
                                         **compensate_kwargs)
         return compensated.mean(axis=0)
+
+    # -- persistence --------------------------------------------------------
+
+    def save_options(self, filepath=None) -> None:
+        """Write the options as the JAX package does: a dated header line,
+        then the fields as JSON (``constancy`` for constancy_assumption,
+        enums as values, no ``preproc_funct``); an ndarray reference goes to
+        ``reference_frames.tif`` beside the file, with its shape."""
+        path = (Path(filepath) if filepath
+                else self.output_path / "options.json")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        data = {}
+        for f in dataclasses.fields(self):
+            if f.init and f.name not in _SCHEMA_EXCLUDED:
+                data[_SCHEMA_ALIASES.get(f.name, f.name)] = getattr(
+                    self, f.name)
+        for k, v in list(data.items()):
+            if isinstance(v, Path):
+                data[k] = str(v)
+            elif isinstance(v, np.ndarray):
+                data[k] = v.tolist()
+            elif isinstance(v, Enum):
+                data[k] = v.value
+        if isinstance(self.reference_frames, np.ndarray):
+            from flowreg3d_tpu_torch.io._tiff_format import TiffWriter
+
+            ref_path = path.parent / "reference_frames.tif"
+            ref = self.reference_frames
+            with TiffWriter(str(ref_path)) as tw:
+                pages = ref if ref.ndim >= 3 else ref[np.newaxis]
+                for page in pages.reshape(-1, *pages.shape[-2:]) \
+                        if pages.ndim == 3 else pages.reshape(
+                            -1, *pages.shape[-3:-1], pages.shape[-1]):
+                    tw.write_page(page)
+            data["reference_frames"] = str(ref_path)
+            data["_reference_frames_shape"] = list(ref.shape)
+        if isinstance(self.input_file, (np.ndarray, VideoReader3D)):
+            data["input_file"] = None
+        with path.open("w", encoding="utf-8") as f:
+            f.write(f"Compensation options {date.today().isoformat()}\n\n")
+            json.dump(data, f, indent=2, default=str)
+
+    @classmethod
+    def load_options(cls, filepath) -> "OFOptions":
+        """Options from a file ``save_options`` (of either package) wrote."""
+        p = Path(filepath)
+        lines = p.read_text(encoding="utf-8").splitlines(keepends=True)
+        start = next((i for i, ln in enumerate(lines)
+                      if ln.strip().startswith("{")), 0)
+        data = json.loads("".join(lines[start:]))
+        shape = data.pop("_reference_frames_shape", None)
+        ref = data.get("reference_frames")
+        if isinstance(ref, str):
+            rp = Path(ref)
+            if rp.exists() and rp.suffix.lower() in (".tif", ".tiff"):
+                arr = _read_tiff_pages(rp)
+                if shape is not None:
+                    arr = arr.reshape(shape)
+                data["reference_frames"] = arr
+        for name, alias in _SCHEMA_ALIASES.items():
+            if alias in data:
+                data[name] = data.pop(alias)
+        return cls(**data)
 
     def to_dict(self) -> dict:
         """Solver kwargs for ``get_displacement``."""

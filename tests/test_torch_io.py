@@ -1,0 +1,311 @@
+"""Port parity: the file I/O of ``flowreg3d_tpu_torch.io`` against the JAX
+package's ``flowreg3d_tpu.io``, on the same seeded numpy frames.
+
+- TIFF files the two writers make from the same frames are byte-identical,
+  and each package reads the other's;
+- round-trips for TIFF, HDF5, MAT v5 and v7.3 and the MULTIFILE writers
+  through the port, each file also read by the JAX package; the
+  MULTICHANNEL, SUBSET and Folder readers; dataset discovery;
+- ScanImage metadata parsed equal from the same files and headers;
+- ``PrefetchReader3D``: the stream, ``seek_frame`` and binning equal to the
+  plain reader and to the JAX wrapper; a closed prefetcher's thread ends;
+- ``AsyncWriter3D``: order, errors;
+- h5py imported only where HDF5 or MAT v7.3 is asked for, and its absence
+  raised as an ImportError naming it.
+"""
+
+import json
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+import flowreg3d_tpu.io.prefetch as jprefetch
+import flowreg3d_tpu.io.scanimage as jscan
+from flowreg3d_tpu.io import get_video_file_reader as jax_reader
+from flowreg3d_tpu.io import get_video_file_writer as jax_writer
+from flowreg3d_tpu.io.array import ArrayReader3D as JaxArrayReader
+from flowreg3d_tpu.io.ds import find_datasets as jax_find_datasets
+
+import flowreg3d_tpu_torch.io.scanimage as tscan
+from flowreg3d_tpu_torch.io import (ArrayReader3D, ArrayWriter3D,
+                                    get_video_file_reader,
+                                    get_video_file_writer)
+from flowreg3d_tpu_torch.io._tiff_format import TiffWriter
+from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
+from flowreg3d_tpu_torch.io.ds import (dataset_name_for_channel,
+                                       find_datasets)
+from flowreg3d_tpu_torch.io.multifile import (MULTICHANNELFileReader3D,
+                                              SUBSETFileReader3D)
+from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
+
+WRITERS = {"jax": jax_writer, "torch": get_video_file_writer}
+READERS = {"jax": jax_reader, "torch": get_video_file_reader}
+
+
+@pytest.fixture
+def video():
+    return (np.random.default_rng(3).random((7, 6, 10, 12, 2))
+            * 1000).astype(np.uint16)
+
+
+def _write(pkg, path, fmt, frames, **kw):
+    w = WRITERS[pkg](str(path), fmt, **kw)
+    w.write_frames(frames[:4])
+    w.write_frames(frames[4:])
+    w.close()
+
+
+def _read(pkg, path, **kw):
+    r = READERS[pkg](path if isinstance(path, list) else str(path), **kw)
+    data = r[:]
+    r.close()
+    return data
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (np.uint16, (7, 6, 10, 12, 2)),
+    (np.float32, (3, 4, 8, 9, 1)),
+    (np.uint8, (2, 5, 7, 3, 3)),
+])
+def test_tiff_files_byte_identical(tmp_path, dtype, shape):
+    frames = (np.random.default_rng(1).random(shape) * 200).astype(dtype)
+    for pkg in WRITERS:
+        _write(pkg, tmp_path / f"{pkg}.tif", "TIFF", frames)
+    assert (tmp_path / "jax.tif").read_bytes() == \
+        (tmp_path / "torch.tif").read_bytes()
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("reader", ["jax", "torch"])
+def test_tiff_cross_read(tmp_path, video, writer, reader):
+    _write(writer, tmp_path / "v.tif", "TIFF", video)
+    got = _read(reader, tmp_path / "v.tif", buffer_size=3)
+    assert got.dtype == video.dtype
+    np.testing.assert_array_equal(got, video)
+
+
+@pytest.mark.parametrize("fmt,name,kw", [
+    ("TIFF", "v.tif", {}),
+    ("HDF5", "v.h5", {}),
+    ("HDF5", "v.h5", {"compression": "gzip", "dataset_names": "mych*"}),
+    ("MAT", "v.mat", {}),
+    ("MAT", "v5.mat", {"version": "5"}),
+])
+def test_roundtrip_and_read_by_jax(tmp_path, video, fmt, name, kw):
+    _write("torch", tmp_path / name, fmt, video, **kw)
+    np.testing.assert_array_equal(_read("torch", tmp_path / name), video)
+    np.testing.assert_array_equal(_read("jax", tmp_path / name), video)
+    if fmt == "MAT":
+        from flowreg3d_tpu_torch.io.mat import is_mat73
+
+        assert is_mat73(tmp_path / name) == (kw.get("version") != "5")
+
+
+@pytest.mark.parametrize("fmt,ext", [("MULTIFILE_TIFF", ".tif"),
+                                     ("MULTIFILE_HDF5", ".h5"),
+                                     ("MULTIFILE_MAT", ".mat")])
+def test_multifile_writer_and_multichannel_reader(tmp_path, video, fmt, ext):
+    _write("torch", tmp_path / f"out{ext}", fmt, video)
+    paths = [str(tmp_path / f"out_ch{c}{ext}") for c in (1, 2)]
+    r = MULTICHANNELFileReader3D(paths)
+    np.testing.assert_array_equal(r[:], video)
+    r.close()
+    np.testing.assert_array_equal(_read("torch", paths[1]), video[..., 1:])
+    # the factory takes a list of paths in both packages
+    np.testing.assert_array_equal(_read("torch", paths), video)
+    r = jax_reader(paths)
+    np.testing.assert_array_equal(r[:], video)
+    r.close()
+
+
+def test_folder_and_subset_readers(tmp_path, video):
+    folder = tmp_path / "vols"
+    folder.mkdir()
+    # names that mis-sort lexicographically: natural order must win
+    for a, b, name in [(0, 2, "vol_2.tif"), (2, 5, "vol_10.tif"),
+                       (5, 7, "vol_100.tif")]:
+        w = get_video_file_writer(str(folder / name), "TIFF")
+        w.write_frames(video[a:b])
+        w.close()
+    (folder / "notes.txt").write_text("ignored")
+    r = get_video_file_reader(str(folder), buffer_size=3)
+    assert r.shape == video.shape
+    np.testing.assert_array_equal(r[:], video)
+    np.testing.assert_array_equal(r[[1, 4, 6]], video[[1, 4, 6]])
+    sub = SUBSETFileReader3D(r, [1, 3, -1])
+    np.testing.assert_array_equal(sub[:], video[[1, 3, 6]])
+    r.close()
+    np.testing.assert_array_equal(_read("jax", folder), video)
+    (folder / "stray.h5").write_bytes(b"\x89HDF")
+    with pytest.raises(ValueError, match="Mixed"):
+        get_video_file_reader(str(folder))
+
+
+def test_factory_array_passthrough_and_errors(tmp_path, video):
+    r = get_video_file_reader(video)
+    assert isinstance(r, ArrayReader3D)
+    assert get_video_file_reader(r) is r
+    assert isinstance(get_video_file_writer(None, "ARRAY"), ArrayWriter3D)
+    with pytest.raises(ValueError, match="file_path required"):
+        get_video_file_writer(None, "HDF5")
+    with pytest.raises(ValueError, match="Unsupported"):
+        get_video_file_writer(str(tmp_path / "x"), "AVI")
+    with pytest.raises(FileNotFoundError):
+        get_video_file_reader(str(tmp_path / "missing.tif"))
+    (tmp_path / "x.avi").write_bytes(b"")
+    with pytest.raises(ValueError, match="Unsupported file format"):
+        get_video_file_reader(str(tmp_path / "x.avi"))
+
+
+@pytest.mark.parametrize("info", [
+    [("ch1", (4, 5, 6, 7)), ("ch2", (4, 5, 6, 7)), ("meta", (3,))],
+    [("ch1", (4, 5, 6, 7)), ("ch2", (9, 5, 6, 7)), ("mov", (4, 5, 6, 7))],
+    [("a", (2, 3, 4, 5)), ("b", (4, 5, 6, 7, 2))],
+    [("Channel_2", (3, 4, 5, 6)), ("channel_10", (3, 4, 5, 6)),
+     ("x", (1,))],
+])
+def test_dataset_discovery_matches_jax(info):
+    assert find_datasets(info) == jax_find_datasets(info)
+    assert dataset_name_for_channel(None, 2, 3) == "ch2"
+    assert dataset_name_for_channel("ch*_reg", 1, 2) == "ch1_reg"
+    assert dataset_name_for_channel(["a", "b"], 2, 2) == "b"
+    assert dataset_name_for_channel("mov", 1, 1) == "mov"
+
+
+_SI_HEADER = ("SI.VERSION_MAJOR = 2023\nSI.hChannels.channelSave = [1;2]\n"
+              "SI.hStackManager.numSlices = 5\n"
+              "SI.hStackManager.framesPerSlice = 1\n"
+              "SI.hStackManager.numVolumes = 7\n"
+              "SI.hStackManager.stackZStepSize = 2.5\n"
+              "SI.hRoiManager.scanFrameRate = 30.2\n")
+_SI_ROIS = {"RoiGroups": {"imagingRoiGroup": {"rois": [
+    {"name": "roiA", "enable": True, "zs": [0, 10, 20],
+     "scanfields": {"pixelResolutionXY": [256, 128], "centerXY": [0.1, -0.2],
+                    "sizeXY": [2.0, 1.0]}}]}}}
+
+
+@pytest.mark.parametrize("description,artist", [
+    (_SI_HEADER.replace("\n", "\r"), json.dumps(_SI_ROIS)),
+    ("scanimage legacy; SI.hChannels.channelsActive = 2; "
+     "SI.hStackManager.numSlices = 6; SI.hStackManager.numVolumes = 10",
+     None),
+    ("no metadata here", None),
+])
+def test_scanimage_parse_matches_jax(tmp_path, description, artist):
+    path = tmp_path / "si.tif"
+    with TiffWriter(str(path)) as tw:
+        tw.set_description(description)
+        if artist:
+            tw.set_artist(artist)
+        for _ in range(70):
+            tw.write_page(np.zeros((4, 6), np.uint16))
+    got = tscan.parse_scanimage_metadata(str(path))
+    want = jscan.parse_scanimage_metadata(str(path))
+    assert got == want
+    assert tscan.parse_scanimage_metadata(description) == \
+        jscan.parse_scanimage_metadata(description)
+    if want is not None:
+        assert tscan.format_scanimage_report(got) == \
+            jscan.format_scanimage_report(want)
+        assert tscan.interpret_scanimage_dimensions(got, n_pages=70) == \
+            jscan.interpret_scanimage_dimensions(want, n_pages=70)
+
+
+def _frames(T=9):
+    return np.arange(T * 2 * 3 * 4).reshape(T, 2, 3, 4, 1).astype(np.float32)
+
+
+def _stream(reader):
+    out = []
+    while reader.has_batch():
+        out.append(reader.read_batch())
+    return out
+
+
+@pytest.mark.parametrize("buffer_size,bin_size,seek", [
+    (2, 1, 0), (4, 1, 5), (2, 2, 1), (3, 1, 9)])
+def test_prefetch_stream_and_seek_match(buffer_size, bin_size, seek):
+    video = _frames()
+    plain = ArrayReader3D(video, buffer_size, bin_size)
+    pre = PrefetchReader3D(ArrayReader3D(video, buffer_size, bin_size))
+    jpre = jprefetch.PrefetchReader3D(JaxArrayReader(video, buffer_size,
+                                                     bin_size))
+    for r in (plain, pre, jpre):
+        r.seek_frame(seek)
+    want = _stream(plain)
+    for got in (_stream(pre), _stream(jpre)):
+        assert [b.shape for b in got] == [b.shape for b in want]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert pre.read_batch() is None
+    assert pre.current_frame == plain.current_frame
+    if want:                        # the stream has started
+        with pytest.raises(RuntimeError, match="seek"):
+            pre.seek_frame(0)
+    pre.reset()
+    np.testing.assert_array_equal(pre.read_batch(),
+                                  video[:buffer_size * bin_size].reshape(
+                                      -1, bin_size, 2, 3, 4, 1).mean(axis=1))
+    np.testing.assert_array_equal(pre[1], plain[1])   # random access
+    pre.close()
+
+
+def test_prefetch_close_ends_its_thread():
+    pre = PrefetchReader3D(ArrayReader3D(_frames(40), 1), prefetch_depth=2)
+    pre.read_batch()
+    worker = pre._thread
+    for _ in range(100):            # the worker fills the queue and blocks
+        if pre._queue.full():
+            break
+        threading.Event().wait(0.01)
+    pre.close()
+    worker.join(timeout=10)
+    assert not worker.is_alive()
+
+
+def test_async_writer_order_and_errors(tmp_path):
+    video = (np.random.default_rng(0).random((9, 4, 6, 8, 1))
+             * 100).astype(np.uint16)
+    w = AsyncWriter3D(get_video_file_writer(str(tmp_path / "v.tif"),
+                                            "TIFF"))
+    for t0 in range(0, 9, 2):
+        w.write_frames(video[t0:t0 + 2])
+    w.close()
+    np.testing.assert_array_equal(_read("torch", tmp_path / "v.tif"), video)
+    np.testing.assert_array_equal(_read("jax", tmp_path / "v.tif"), video)
+
+    class Boom(ArrayWriter3D):
+        def write_frames(self, frames):
+            raise IOError("disk full")
+
+    w = AsyncWriter3D(Boom())
+    w.write_frames(video[:1])
+    w.flush()
+    with pytest.raises(IOError, match="disk full"):
+        w.write_frames(video[1:2])  # after a failure, writes raise
+    with pytest.raises(IOError, match="disk full"):
+        w.close()
+
+
+def test_without_h5py_hdf5_and_mat73_raise(tmp_path, monkeypatch, video):
+    """Where h5py is missing, HDF5 and MAT v7.3 raise an ImportError that
+    names it when the reader or writer is made; TIFF and MAT v5 work."""
+    _write("torch", tmp_path / "v.h5", "HDF5", video)
+    _write("torch", tmp_path / "v.mat", "MAT", video)
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    for make in (lambda: get_video_file_writer(str(tmp_path / "w.h5"),
+                                               "HDF5"),
+                 lambda: get_video_file_writer(str(tmp_path / "w.mat"),
+                                               "MAT"),
+                 lambda: get_video_file_reader(str(tmp_path / "v.h5")),
+                 lambda: get_video_file_reader(str(tmp_path / "v.mat"))):
+        with pytest.raises(ImportError, match="h5py"):
+            make()
+    assert not (tmp_path / "w.h5").exists()
+    assert not (tmp_path / "w.mat").exists()
+    _write("torch", tmp_path / "v5.mat", "MAT", video, version="5")
+    _write("torch", tmp_path / "v.tif", "TIFF", video)
+    np.testing.assert_array_equal(_read("torch", tmp_path / "v5.mat"), video)
+    np.testing.assert_array_equal(_read("torch", tmp_path / "v.tif"), video)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX, the JAX package nor
-pydantic, and its entry points (the pipeline's included) run on CUDA unless
-the caller asks for the CPU."""
+pydantic, nor h5py until an HDF5 or MAT v7.3 file is asked for (its io and
+cli modules included), and its entry points (the pipeline's included) run
+on CUDA unless the caller asks for the CPU."""
 
 import re
 import subprocess
@@ -37,9 +38,15 @@ opts = OFOptions(iterations=2, update_lag=1, levels=2, min_level=0,
 reg, w = compensate_arr(np.stack([fixed, moving]), fixed, options=opts,
                         device="cpu")
 assert reg.shape == (2, 8, 20, 20) and w.shape == (2, 8, 20, 20, 3)
+import flowreg3d_tpu_torch.cli.main, flowreg3d_tpu_torch.cli.tiff_reshape
+import flowreg3d_tpu_torch.cli.concat_tiffs, flowreg3d_tpu_torch.io
+from flowreg3d_tpu_torch.io import (_tiff_format, tiff3d, ds, hdf5, mat,
+                                    multifile, scanimage, prefetch,
+                                    async_writer, factory)
+from flowreg3d_tpu_torch.pipeline import compensate_recording
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flowreg3d_tpu",
-                                    "pydantic"))
+                                    "pydantic", "h5py"))
 print("LOADED", bad)
 """
 
@@ -75,6 +82,11 @@ def test_default_device_is_cuda_and_raises_without_it():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         compensate_arr(vol[None], vol, OFOptions(weight=[1.0]))
+    from flowreg3d_tpu_torch.pipeline import compensate_recording
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compensate_recording(OFOptions(input_file=vol[None], weight=[1.0],
+                                       output_format="ARRAY"))
 
 
 def test_no_jax_imports_in_port_sources():

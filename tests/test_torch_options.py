@@ -95,7 +95,7 @@ def test_invalid_values_raise_in_both(kw):
         OFOptions(**kw)
 
 
-def test_copy_is_deep_and_reference_frames():
+def test_copy_is_deep_and_reference_frames(tmp_path):
     vol = np.random.default_rng(0).random((3, 4, 5, 6, 1)).astype(np.float32)
     opts = OFOptions(reference_frames=[0, 2, 9])
     dup = opts.copy()
@@ -107,8 +107,19 @@ def test_copy_is_deep_and_reference_frames():
         jax_opts.get_reference_frame(JaxArrayReader(vol)))
     ref = vol[1]
     assert OFOptions(reference_frames=ref).get_reference_frame() is ref
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        OFOptions(reference_frames="ref.tif").get_reference_frame()
+    # a TIFF reference: (Z,Y,X) pages, read as the JAX package reads it
+    from flowreg3d_tpu_torch.io._tiff_format import TiffWriter
+
+    path = tmp_path / "ref.tif"
+    with TiffWriter(str(path)) as tw:
+        for page in vol[1, ..., 0]:
+            tw.write_page(page)
+    got = OFOptions(reference_frames=str(path)).get_reference_frame()
+    np.testing.assert_array_equal(got, vol[1, ..., 0])
+    np.testing.assert_array_equal(
+        got, JaxOFOptions(reference_frames=path).get_reference_frame())
+    with pytest.raises(ValueError, match="Unsupported reference"):
+        OFOptions(reference_frames="ref.png").get_reference_frame()
 
 
 def test_quality_custom_roundtrip():

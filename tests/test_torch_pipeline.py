@@ -180,28 +180,41 @@ def test_symmetric_padding_matches_numpy(n):
         np.testing.assert_array_equal(x[idx], np.pad(x, r, mode="symmetric"))
 
 
-def test_unported_requests_raise(base_volume):
+def test_unported_requests_raise(base_volume, tmp_path):
     """What is still not ported raises and names its ROADMAP item: the mesh
-    executor, checkpointing, prefetch, flow backends and file formats."""
+    executor and flow backends. Checkpointing, prefetch, the async writer
+    and file formats work: a MAT run through all three writes the in-memory
+    pipeline's frames."""
     opts = options_from_jax(fast_options(a_smooth=0.5))
     with pytest.raises(ValueError):
         compensate_arr(np.empty((0, 2, 2, 2, 1)), base_volume, device="cpu")
     for cfg, queue in ((RegistrationConfig(parallelization="mesh"),
                         "item 11"),
-                       (RegistrationConfig(checkpoint=True), "item 8"),
-                       (RegistrationConfig(prefetch=2), "item 8"),
                        (RegistrationConfig(flow_backend="volraft"),
+                        "item 13"),
+                       (RegistrationConfig(get_displacement_func=len),
                         "item 13")):
         with pytest.raises(NotImplementedError, match=f"Queue 1 {queue}"):
             BatchMotionCorrector(opts, cfg, device="cpu")
     with pytest.raises(ValueError, match="Unknown executor"):
         BatchMotionCorrector(opts, RegistrationConfig(parallelization="gpu9"),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        BatchMotionCorrector(opts.replace(output_format=OutputFormat.MAT,
-                                          input_file=base_volume[None],
-                                          reference_frames=base_volume),
-                             device="cpu").run()
+    assert (RegistrationConfig().prefetch, RegistrationConfig().async_write,
+            RegistrationConfig().checkpoint) == (2, True, False)
+    video = np.stack([base_volume, np.roll(base_volume, 1, axis=1)])
+    cfg = RegistrationConfig(checkpoint=True, prefetch=2, async_write=True)
+    corr = BatchMotionCorrector(opts.replace(
+        output_format=OutputFormat.MAT, input_file=video,
+        reference_frames=base_volume, output_path=tmp_path), cfg,
+        device="cpu")
+    corr.run()
+    from flowreg3d_tpu_torch.io.factory import get_video_file_reader
+
+    r = get_video_file_reader(str(tmp_path / "compensated.MAT"))
+    reg, _ = compensate_arr(video, base_volume, options=opts, device="cpu")
+    np.testing.assert_array_equal(r[:], reg)
+    r.close()
+    assert not (tmp_path / "checkpoint.npz").exists()
 
 
 def _epe(w, w_j):
