@@ -71,7 +71,22 @@ Phases:
      volumes/s with and without prefetch and the async writer, a T=8 run
      interrupted after its first batch and resumed (equal to the
      uninterrupted run), and the CLI's tiff-reshape --scale against the
-     port's resize on the card.
+     port's resize on the card;
+ 10. multi-GPU execution, on the cards present (one card: the mesh
+     executor over [cuda:0], the Z-sharded paths over [cuda:0, cuda:0], two
+     shards of one card; more cards: then both over every card): (a) the
+     slab mode of the psi field and both half-sweeps against their plain
+     versions (the full-size level in 2 slabs, a ragged level in 3 with a
+     padded last slab; the whole-volume call unchanged), timed at the slab
+     shape; (b) the sharded level solve, bit-identical to plain and to one
+     slab; (c) get_displacement_sharded on the canonical pair at the direct
+     API's defaults and at OFOptions() defaults (the constant half-sweep's
+     path) and on the convergent pair, kernels against plain, against the
+     single-device step (at the 40 dB gate, or where the single-device step
+     on input scaled by one ulp itself moves further, within that spread),
+     with launches, exchange copies, warm ms and peak memory; (d) the mesh
+     pipeline (resident and host-staged) bit-identical to batched, and the
+     spatial pipeline against batched.
 Launch counts: every kernel wrapper counts its launches from the host (a
 capture is taken back out); a CUDA-graph replay launches its kernels
 without the wrappers, so each graph counts its replays, and the kernels
@@ -112,6 +127,11 @@ SHAPE = (64, 512, 512)
 PIPELINE_T = 4
 CONV_SHAPE = (32, 128, 128)
 CONV_SHIFT = (1, 2, -2)            # (z, y, x) roll; flow [dx,dy,dz] = (-2, 2, 1)
+# phase 10: ringed (P, M, N) volumes split into n slabs (the full-size
+# level in 2; 23 interior rows in 3, the last slab padded), and the
+# canonical level of the sharded level solve
+SLAB_CASES = ((66, 514, 514, 2), (25, 172, 172, 3))
+LEVEL_SHAPE = (23, 170, 170)
 
 # H100 SXM published peaks (dense): HBM bytes/s and fp32 (non-tensor) ops/s
 HBM_BYTES_PER_S = 3.35e12
@@ -827,7 +847,7 @@ def phase_psi_kernels(card, dev):
              replaces="flowreg3d_tpu/core/solver_pallas.py:247"),
         dict(out[("psi_field_f32", 0)], path="direct",
              replaces="flowreg3d_tpu/core/solver_pallas.py:435"),
-        dict(out[("sor_halfsweep_const_f32", 0)], path=None,
+        dict(out[("sor_halfsweep_const_f32", 0)], path="spatial_defaults",
              replaces="flowreg3d_tpu/core/solver_pallas.py:33"),
         dict(out[("sor_halfsweep_psi_f32", 0)], path="direct",
              replaces="flowreg3d_tpu/core/solver_pallas.py:148"),
@@ -989,7 +1009,7 @@ def run_pipeline(frames, reference, use_kernels, dev, defaults=False,
     seconds, what ran: the engine and the executor). ``config``: fields of
     RegistrationConfig beside use_kernels (none: the default config).
     ``stats``: a dict that receives the run's per-frame mean_disp and
-    max_disp."""
+    max_disp, and its executor's get_info()."""
     from flowreg3d_tpu_torch.pipeline import (RegistrationConfig,
                                               compensate_arr_3D)
     from flowreg3d_tpu_torch.pipeline.corrector import BatchMotionCorrector
@@ -1015,7 +1035,8 @@ def run_pipeline(frames, reference, use_kernels, dev, defaults=False,
     info = dict(resident=getattr(ran[0], "used_device_resident", False),
                 executor=ran[0].executor.name)
     if stats is not None:
-        stats.update(mean_disp=ran[0].mean_disp, max_disp=ran[0].max_disp)
+        stats.update(mean_disp=ran[0].mean_disp, max_disp=ran[0].max_disp,
+                     executor_info=ran[0].executor.get_info())
     return reg, flows, seconds, info
 
 
@@ -1714,6 +1735,677 @@ def phase_file_pipeline(card, dev, t24, profile=False):
     return launches, reps, vols
 
 
+# -- phase 10: multi-GPU execution -------------------------------------------
+
+def slab_split(P, n):
+    """Slab rows pz and each slab's (z_off, z_lo, z_hi) for n slabs of a
+    ringed P-row volume (parallel/spatial.compute_flow_level_sharded's
+    split: ceil((P-2)/n) interior rows a slab, the last padded)."""
+    p_int = P - 2
+    pz = -(-p_int // n)
+    return pz, [(k * pz, 1 if k == 0 else 0, p_int - k * pz)
+                for k in range(n)]
+
+
+def slab_blocks(f, pz, n):
+    """Slab k of a (..., P, M, N) tensor: rows [k*pz, k*pz + pz + 2), the
+    rows past the bottom ring edge copies of it."""
+    import torch
+
+    pad = pz * n + 2 - f.shape[-3]
+    if pad > 0:
+        f = torch.cat([f, f[..., -1:, :, :].expand(
+            tuple(f.shape[:-3]) + (pad,) + tuple(f.shape[-2:]))], dim=-3)
+    return [f[..., k * pz:k * pz + pz + 2, :, :].contiguous()
+            for k in range(n)]
+
+
+def phase_slab_kernels(card, dev):
+    """10a: the slab mode of psi_field_f32, sor_halfsweep_psi_f32 and
+    sor_halfsweep_const_f32 against their plain versions, max |diff| = 0:
+    the (66,514,514) level in 2 slabs, (25,172,172) (23 interior rows) in 3
+    with a padded last slab; the whole-volume call with the explicit slab
+    (0, 1, P-2) equal to the default; each kernel timed at the 2-slab
+    shape. Returns {kernel: timing row at the slab shape}."""
+    import torch
+
+    from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
+
+    log("phase 10a: slab kernels against their plain versions")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    ax, ay, az = 0.7, 0.9, 1.3
+    params = spk.psi_params(0.5, 1.0, 1.25, 1.5)
+    timed = {}
+    for P, M, N, n in SLAB_CASES:
+        duvw = 0.1 * torch.randn((3, P, M, N), generator=gen, device=dev)
+        base = 2.0 * torch.rand((3, P, M, N), generator=gen, device=dev)
+        sj = 0.1 * torch.rand((9, P, M, N), generator=gen, device=dev)
+        sj[:3] += 0.5
+        psi = 0.5 + torch.rand((P, M, N), generator=gen, device=dev)
+        pz, slabs = slab_split(P, n)
+        blocks = [slab_blocks(f, pz, n) for f in (duvw, base, sj, psi)]
+        errs = dict(psi_field=0.0, sor_halfsweep_psi=0.0,
+                    sor_halfsweep_const=0.0)
+        for k, slab in enumerate(slabs):
+            d, b, s_, p = (x[k] for x in blocks)
+            e = (spk.psi_field(d, b, *params, slab=slab)
+                 - spk.psi_field_plain(d, b, *params, slab=slab))
+            errs["psi_field"] = max(errs["psi_field"],
+                                    float(e.abs().max()))
+            for parity in (0, 1):
+                for name, kern, plain, extra in (
+                        ("sor_halfsweep_psi", spk.halfsweep_psi,
+                         spk.halfsweep_psi_plain, (p,)),
+                        ("sor_halfsweep_const", spk.halfsweep,
+                         spk.halfsweep_plain, ())):
+                    a, c = d.clone(), d.clone()
+                    kern(a, b, s_, *extra, ax, ay, az, parity, slab)
+                    plain(c, b, s_, *extra, ax, ay, az, parity, slab)
+                    errs[name] = max(errs[name], float((a - c).abs().max()))
+        whole = {}
+        for slab in (None, (0, 1, P - 2)):
+            a = duvw.clone()
+            spk.halfsweep_psi(a, base, sj, psi, ax, ay, az, 1, slab)
+            spk.halfsweep(a, base, sj, ax, ay, az, 0, slab)
+            whole[slab] = (a, spk.psi_field(duvw, base, *params, slab=slab))
+        a = duvw.clone()
+        spk.halfsweep_psi_plain(a, base, sj, psi, ax, ay, az, 1)
+        spk.halfsweep_plain(a, base, sj, ax, ay, az, 0)
+        same = (torch.equal(whole[None][0], whole[(0, 1, P - 2)][0])
+                and torch.equal(whole[None][1], whole[(0, 1, P - 2)][1])
+                and torch.equal(whole[None][0], a)
+                and torch.equal(whole[None][1],
+                                spk.psi_field_plain(duvw, base, *params)))
+        torch.cuda.synchronize()
+        log(f"  ({P},{M},{N}) in {n} slabs of {pz + 2} rows {slabs}: "
+            f"max|kernel-plain| {errs}; whole volume with the explicit slab "
+            f"(0, 1, {P - 2}) equal to the default and to plain: {same}")
+        check(max(errs.values()) == 0.0,
+              f"slab kernels are not bit-equal at {(P, M, N)}: {errs}")
+        check(same, f"whole-volume kernels changed at {(P, M, N)}")
+        if n == 2:
+            d, b, s_, p = (x[0] for x in blocks)
+            slab = slabs[0]
+            cells = d[0].numel()
+            for name, kern, plain, n_bytes, n_ops in (
+                    ("psi_field_f32",
+                     lambda: spk.psi_field(d, b, *params, out=p, slab=slab),
+                     lambda: spk.psi_field_plain(d, b, *params, out=p,
+                                                 slab=slab),
+                     28 * cells, 70 * cells),
+                    ("sor_halfsweep_psi_f32",
+                     lambda: spk.halfsweep_psi(d, b, s_, p, ax, ay, az, 0,
+                                               slab),
+                     lambda: spk.halfsweep_psi_plain(d, b, s_, p, ax, ay, az,
+                                                     0, slab),
+                     70 * cells, 60 * cells),
+                    ("sor_halfsweep_const_f32",
+                     lambda: spk.halfsweep(d, b, s_, ax, ay, az, 0, slab),
+                     lambda: spk.halfsweep_plain(d, b, s_, ax, ay, az, 0,
+                                                 slab),
+                     66 * cells, 50 * cells)):
+                bnd, by = bound_ms(n_bytes, n_ops)
+                timed[name] = dict(ms=cuda_ms(kern, 50),
+                                   plain_ms=cuda_ms(plain, 5, 1),
+                                   bound_ms=bnd, bound_by=by,
+                                   shape=tuple(d.shape[1:]))
+                log(f"  {name} slab {tuple(d.shape[1:])} {slab}: "
+                    f"{timed[name]['ms']:.4f} ms/launch, plain "
+                    f"{timed[name]['plain_ms']:.4f} ms, bound {bnd:.4f} ms "
+                    f"({by}); card {card}")
+        del duvw, base, sj, psi, blocks
+    return timed
+
+
+def level_problem(shape, dev, seed=0):
+    """tests/parallel/test_spatial.py's random level problem on the card:
+    (J entries (p,m,n,1), weight, u, v, w)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = [rng.standard_normal(shape + (1,)).astype(np.float32) * s
+         for s in (0.3, 0.3, 0.3, 0.1)]
+    gx, gy, gz, gt = g
+    J = (gx * gx, gy * gy, gz * gz, gt * gt, gx * gy, gx * gz, gy * gz,
+         gx * gt, gy * gt, gz * gt)
+    up = [torch.from_numpy(a).to(dev) for a in J]
+    weight = torch.ones(shape + (1,), device=dev)
+    uvw = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            * 0.1).to(dev) for _ in range(3)]
+    return up, weight, uvw
+
+
+def unfolded_level(J, weight, u, v, w, alpha, iterations, update_lag,
+                   a_data, **_):
+    """The single-device a_smooth 1 level solve on the unfolded stencil
+    (weights a_dir, as the sharded solve sweeps it; hx = hy = hz = 1) from
+    the plain whole-volume half-sweeps: the function
+    compute_flow_level_sharded computes, without its slabs, exchanges or
+    kernels."""
+    import torch
+
+    from flowreg3d_tpu_torch.core.solver import (_blocks, data_exponents,
+                                                 tick_update)
+    from flowreg3d_tpu_torch.core.solver_psi_kernel import (halfsweep_plain,
+                                                            set_boundary_3d)
+
+    Jc = torch.stack([j.movedim(-1, 0) for j in J])
+    wt = weight.movedim(-1, 0)
+    a_vec = data_exponents(a_data, Jc.shape[1], u.dtype, u.device)
+    ax, ay, az = (float(np.float32(a)) for a in alpha)
+    base = torch.stack([u, v, w])
+    duvw = torch.zeros_like(base)
+    for k_iters in _blocks(iterations, update_lag):
+        SJ = torch.stack(tick_update(Jc, wt, a_vec, *duvw))
+        for _ in range(k_iters):
+            for parity in (0, 1):
+                halfsweep_plain(duvw, base, SJ, ax, ay, az, parity)
+    return tuple(set_boundary_3d(duvw[k].clone()) for k in range(3))
+
+
+# the largest |difference| allowed between the a_smooth 1 level solve on
+# the unfolded stencil (sharded) and on the folded one (single device) after
+# LEVEL_ITERATIONS: the same function, but the re-linearisation of the data
+# term after the first tick block amplifies their rounding apart (10b logs
+# the values' largest magnitude beside it); a wrong exchange or parity
+# moves it by the values' own size
+FOLD_GAP = 0.05
+LEVEL_ITERATIONS = 8
+
+
+def excess(a, b):
+    """max over the three components of |a - b| - 5e-4 |b|: at most 5e-4
+    within JAX's bound (tests/parallel/test_spatial.py:52)."""
+    return max(float(((x - y).abs() - 5e-4 * y.abs()).max())
+               for x, y in zip(a, b))
+
+
+def phase_level_sharded(card, dev, devices):
+    """10b: compute_flow_level_sharded at the canonical level LEVEL_SHAPE
+    over ``devices``, both a_smooth values: kernels against plain
+    bit-identical, and bit-identical to the one-slab solve (the whole
+    volume through the same slab kernels: the exchange only moves values).
+    Against single-device solves, within JAX's bound (``excess``): at
+    a_smooth 0.5 the single-device compute_flow_level, which sweeps the
+    same stencil; at a_smooth 1 the plain single-device solve on the same
+    unfolded stencil (``unfolded_level``), and compute_flow_level, which
+    folds the base Laplacian into the data terms, over one tick block
+    (iterations = update_lag: before the data term's re-linearisation), and
+    over LEVEL_ITERATIONS within ``FOLD_GAP``."""
+    import torch
+
+    from flowreg3d_tpu_torch.core.solver import compute_flow_level
+    from flowreg3d_tpu_torch.parallel.spatial import (
+        compute_flow_level_sharded)
+
+    shape = LEVEL_SHAPE
+    J, weight, (u, v, w) = level_problem(shape, dev)
+    kw = dict(alpha=(1.2, 1.0, 0.8), iterations=LEVEL_ITERATIONS,
+              update_lag=3, a_data=np.array([0.45]), hx=1.0, hy=1.0, hz=1.0)
+
+    def single(a_smooth, **over):
+        k = dict(kw, **over)
+        return compute_flow_level(J, weight, u, v, w, k["alpha"],
+                                  k["iterations"], k["update_lag"],
+                                  k["a_data"], a_smooth, 1.0, 1.0, 1.0)
+
+    for a_smooth in (1.0, 0.5):
+        out = {tag: compute_flow_level_sharded(J, weight, u, v, w,
+                                               devices=devs,
+                                               a_smooth=a_smooth,
+                                               use_kernels=uk, **kw)
+               for tag, devs, uk in (("kernel", devices, True),
+                                     ("plain", devices, False),
+                                     ("one slab", devices[:1], True))}
+        same = {tag: all(torch.equal(a, b)
+                         for a, b in zip(out["kernel"], out[tag]))
+                for tag in ("plain", "one slab")}
+        check(all(same.values()), f"sharded level solve (a_smooth "
+              f"{a_smooth}): bit-identical to plain / one slab {same}")
+        layout = f"10b level {shape} over {[str(d) for d in devices]}"
+        if a_smooth != 1.0:
+            err = excess(out["kernel"], single(a_smooth))
+            log(f"  {layout}, a_smooth {a_smooth}: bit-identical to plain "
+                f"and to one slab {same}; against the single-device solve "
+                f"max(|sharded - single| - 5e-4 |single|) {err:.3e}")
+            check(err <= 5e-4, f"sharded level solve {err} beyond 5e-4 of "
+                  f"the single-device solve (a_smooth {a_smooth})")
+            continue
+        err_u = excess(out["kernel"], unfolded_level(J, weight, u, v, w,
+                                                     **kw))
+        one = dict(iterations=kw["update_lag"])
+        err_1 = excess(compute_flow_level_sharded(
+            J, weight, u, v, w, devices=devices, a_smooth=1.0,
+            **dict(kw, **one)), single(1.0, **one))
+        folded = single(1.0)
+        gap = max(float((a - b).abs().max())
+                  for a, b in zip(out["kernel"], folded))
+        top = max(float(b.abs().max()) for b in folded)
+        log(f"  {layout}, a_smooth 1.0: bit-identical to plain and to one "
+            f"slab {same}; max(|sharded - single| - 5e-4 |single|): "
+            f"{err_u:.3e} against the plain single-device unfolded solve, "
+            f"{err_1:.3e} against compute_flow_level (folded) over one "
+            f"tick block ({kw['update_lag']} iterations); folded vs "
+            f"unfolded after {kw['iterations']} iterations max |diff| "
+            f"{gap:.3e} (<= {FOLD_GAP}; max |single| {top:.3f})")
+        check(err_u <= 5e-4 and err_1 <= 5e-4,
+              f"sharded level solve (a_smooth 1) beyond 5e-4 of the "
+              f"single-device solves: unfolded {err_u}, folded over one "
+              f"tick block {err_1}")
+        check(gap <= FOLD_GAP, f"sharded level solve (a_smooth 1): folded "
+              f"vs unfolded gap {gap} beyond {FOLD_GAP}")
+
+
+def spatial_expected(params, n, shape):
+    """Host launches of one sharded step over n shards (with the raw
+    frame's warp): sharded levels launch a kernel a shard, the replicated
+    ones as the single-device pyramid."""
+    from flowreg3d_tpu_torch.core.pyramid import level_schedule
+    from flowreg3d_tpu_torch.core.solver import _blocks
+
+    plan, _, _ = level_schedule(shape, params["eta"], params["levels"],
+                                params["min_level"])
+    e = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    it = params["iterations"]
+    for _, size, _ in plan:
+        sharded = size[0] >= 4 * n
+        mult = n if sharded else 1
+        if params["a_smooth"] != 1.0:
+            e["psi_field_f32"] += mult * it
+            e["sor_halfsweep_psi_f32"] += 2 * mult * it
+        elif sharded:
+            e["sor_halfsweep_const_f32"] += 2 * n * it
+        else:
+            e["sor_iterations_f32"] += len(_blocks(it, params["update_lag"]))
+        e["map_coords_f32"] += mult
+        e["median5_f32"] += mult * (min(size) > 5)
+    e["map_coords_f32"] += 1
+    return e
+
+
+def sharded_step(fixed_t, moving_t, params, devices, use_kernels):
+    """One sharded motion-correction step: the flow from
+    get_displacement_sharded, then the raw frame's cubic warp."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.parallel.spatial_pyramid import (
+        get_displacement_sharded)
+
+    flow, valid = get_displacement_sharded(fixed_t, moving_t,
+                                           devices=devices,
+                                           use_kernels=use_kernels, **params)
+    reg = ft.imregister_wrapper(moving_t, flow[..., 0], flow[..., 1],
+                                flow[..., 2], fixed_t, "cubic",
+                                device=fixed_t.device,
+                                use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    return flow, reg, bool(valid)
+
+
+# input scalings by one ulp either way: the single-device path on them
+# shows the spread rounding alone gives in a regime
+SCALES = (1.0 + 2.0 ** -22, 1.0 - 2.0 ** -23)
+# the least agreement in dB a sharded registration may reach against the
+# single-device one, whatever the spread, set for SHAPE: a registration that
+# failed (the unregistered volume, logged beside it) stays below
+AGREEMENT_FLOOR_DB = 28.5
+# the largest EPE of the convergent pair's sharded flow, whatever the spread
+# (its zero flow is logged beside it)
+CONVERGENT_EPE_CAP = 0.5
+# the largest mean EPE (voxels) of the sharded flow against the
+# single-device flow when every level runs one tick block (iterations =
+# update_lag), the accuracy gate's EPE: the data term is linearised once a
+# level, so rounding is barely amplified, and a wrong exchange or slab
+# parity moves the flow by voxels
+ONE_BLOCK_EPE = 0.25
+
+
+def agreement_bar(spread_db):
+    """The agreement in dB a sharded result must reach against the
+    single-device one: the accuracy gate's 40 dB, or, where the
+    single-device path itself moves further than that when its input is
+    scaled by one of ``SCALES`` (an a_smooth 1 regime amplifying rounding;
+    ``spread_db`` the least agreement of those), that spread less 1 dB, and
+    never below ``AGREEMENT_FLOOR_DB``."""
+    return max(AGREEMENT_FLOOR_DB, min(40.0, spread_db - 1.0))
+
+
+def one_block_epe(fixed_t, moving_t, params, devices):
+    """The canonical pair with every level at one tick block: mean EPE of
+    the sharded flow against the single-device flow, and of the
+    single-device flow on the input scaled by ``SCALES[0]`` (the spread)."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.parallel.spatial_pyramid import (
+        get_displacement_sharded)
+
+    one = dict(params, iterations=params["update_lag"])
+    flow_s = ft.get_displacement(fixed_t, moving_t, device=fixed_t.device,
+                                 **one)
+    flow_e = ft.get_displacement(fixed_t * SCALES[0], moving_t * SCALES[0],
+                                 device=fixed_t.device, **one)
+    flow_k, _ = get_displacement_sharded(fixed_t, moving_t, devices=devices,
+                                         **one)
+
+    def epe(f):
+        return float(torch.linalg.vector_norm(f - flow_s, dim=-1).mean())
+
+    return epe(flow_k), epe(flow_e)
+
+
+def phase_spatial_step(card, dev, devices, tag, params, fixed_t, moving_t):
+    """10c: get_displacement_sharded + the raw warp on the canonical pair
+    over ``devices``: kernels against plain bit-identical, valid, the
+    registered volume against the single-device step's at the bar of
+    ``agreement_bar`` (the spread: the single-device step on the input
+    scaled by ``SCALES``, its flow warping the same moving volume); with
+    one tick block a level, the flow within ``ONE_BLOCK_EPE`` of the
+    single-device flow; launches, exchange copies, warm ms and peak memory
+    beside the single-device step's."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.parallel.mesh import peer_copy
+
+    layout = [str(d) for d in devices]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    flow_s, reg_s = run_step(fixed_t, moving_t, params, True)
+    mem_single = torch.cuda.max_memory_allocated(dev) - base_mem
+    spreads = []
+    for scale in SCALES:
+        flow_e, _ = run_step(fixed_t * scale, moving_t * scale, params, True)
+        reg_e = ft.imregister_wrapper(moving_t, flow_e[..., 0],
+                                      flow_e[..., 1], flow_e[..., 2],
+                                      fixed_t, "cubic", device=dev)
+        spreads.append(psnr(reg_s.cpu().numpy(), reg_e.cpu().numpy()))
+    spread = min(spreads)
+    del flow_s, flow_e, reg_e
+    torch.cuda.reset_peak_memory_stats(dev)
+    expected = spatial_expected(params, len(devices), SHAPE)
+    reset_counts()
+    copies = peer_copy.copies
+    t = time.perf_counter()
+    flow_k, reg_k, valid_k = sharded_step(fixed_t, moving_t, params, devices,
+                                          True)
+    first_s = time.perf_counter() - t
+    launches = read_counts()
+    copies = peer_copy.copies - copies
+    mem_sharded = torch.cuda.max_memory_allocated(dev) - base_mem
+    t = time.perf_counter()
+    flow_p, reg_p, valid_p = sharded_step(fixed_t, moving_t, params, devices,
+                                          False)
+    plain_s = time.perf_counter() - t
+    same = bool(torch.equal(flow_k, flow_p) and torch.equal(reg_k, reg_p))
+    agree = psnr(reg_s.cpu().numpy(), reg_k.cpu().numpy())
+    del flow_p, reg_p
+    times = []
+    for _ in range(2):
+        t = time.perf_counter()
+        sharded_step(fixed_t, moving_t, params, devices, True)
+        times.append(time.perf_counter() - t)
+    ms = 1e3 * min(times)
+    bar = agreement_bar(spread)
+    unregistered = psnr(reg_s.cpu().numpy(), moving_t.cpu().numpy())
+    epe_1, epe_1e = one_block_epe(fixed_t, moving_t, params, devices)
+    log(f"  10c {tag} over {layout}: valid {valid_k}/{valid_p}; kernels vs "
+        f"plain bit-identical {same}; registered vs the single-device step "
+        f"{agree:.2f} dB (>= {bar:.2f}; the single-device step on input "
+        f"scaled by {SCALES}: {[round(x, 2) for x in spreads]} dB; the "
+        f"unregistered volume {unregistered:.2f} dB); one tick block a "
+        f"level: flow EPE against the single-device flow {epe_1:.4f} (<= "
+        f"{ONE_BLOCK_EPE}; the single-device flow on input scaled by "
+        f"{SCALES[0]}: {epe_1e:.4f}); "
+        f"launches {launches} "
+        f"(expected "
+        f"{expected}); exchange copies {copies}; first call {first_s:.2f} "
+        f"s, plain {plain_s:.2f} s, warm {ms:.1f} ms a frame "
+        f"({[round(1e3 * x, 1) for x in times]}); peak memory on {dev} "
+        f"{mem_sharded / 2**30:.2f} GiB sharded against "
+        f"{mem_single / 2**30:.2f} GiB for the single-device step"
+        + (" (all slabs on this one card)"
+           if len(set(devices)) == 1 else "") + f"; card {card}")
+    check(valid_k and valid_p, f"10c {tag}: valid {valid_k} {valid_p}")
+    check(same, f"10c {tag}: kernels vs plain not bit-identical")
+    check(agree >= bar, f"10c {tag}: {agree} dB against the single-device "
+          f"step, bar {bar} (spread {spread} dB)")
+    check(epe_1 <= ONE_BLOCK_EPE, f"10c {tag}: one tick block a level, flow "
+          f"EPE {epe_1} against the single-device flow beyond "
+          f"{ONE_BLOCK_EPE}")
+    check(launches == expected, f"10c {tag}: launches {launches} != "
+          f"{expected}")
+    return launches, ms
+
+
+def phase_spatial_convergent(card, dev, devices):
+    """10c: the convergent pair of phase 4, sharded against the
+    single-device flow, on the accuracy gate (EPE <= 0.25, >= 40 dB), or,
+    where the single-device step on input scaled by ``SCALES`` moves
+    further than the gate, within that spread (EPE 1.25 times, 1 dB), at
+    most ``CONVERGENT_EPE_CAP`` and at least ``AGREEMENT_FLOOR_DB``."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+
+    fixed, moving = make_pair(CONV_SHAPE, n_blobs=3000, seed=2,
+                              shift=CONV_SHIFT)
+    fixed_t, moving_t = (torch.from_numpy(a).to(dev) for a in (fixed, moving))
+    flow_s, reg_s = run_step(fixed_t, moving_t, CONVERGENT, True)
+    flow_k, reg_k, valid = sharded_step(fixed_t, moving_t, CONVERGENT,
+                                        devices, True)
+    b = CONV_SHAPE[0] // 4
+    crop = (slice(b, -b),) * 3
+
+    def epe_db(flow, reg):
+        return (float(torch.linalg.vector_norm(flow[crop] - flow_s[crop],
+                                               dim=-1).mean()),
+                psnr(reg_s[crop].cpu().numpy(), reg[crop].cpu().numpy()))
+
+    epe, agree = epe_db(flow_k, reg_k)
+    spreads = []
+    for scale in SCALES:
+        flow_e, _ = run_step(fixed_t * scale, moving_t * scale, CONVERGENT,
+                             True)
+        spreads.append(epe_db(flow_e, ft.imregister_wrapper(
+            moving_t, flow_e[..., 0], flow_e[..., 1], flow_e[..., 2],
+            fixed_t, "cubic", device=dev)))
+    epe_e = max(e for e, _ in spreads)
+    spread = min(d for _, d in spreads)
+    epe_bar = min(CONVERGENT_EPE_CAP, max(0.25, 1.25 * epe_e))
+    bar = agreement_bar(spread)
+    zero = epe_db(torch.zeros_like(flow_s), moving_t)
+    log(f"  10c convergent {CONV_SHAPE} over {[str(d) for d in devices]}: "
+        f"valid {valid}; sharded vs single-device flow EPE {epe:.4f} (<= "
+        f"{epe_bar:.4f}), registered {agree:.2f} dB (>= {bar:.2f}); the "
+        f"single-device step on input scaled by {SCALES}: (EPE, dB) "
+        f"{[(round(e, 4), round(d, 2)) for e, d in spreads]}; zero flow "
+        f"(EPE, dB) ({zero[0]:.4f}, {zero[1]:.2f})")
+    check(valid and epe <= epe_bar and agree >= bar,
+          f"10c convergent: valid {valid}, EPE {epe} (bar {epe_bar}), "
+          f"{agree} dB (bar {bar})")
+
+
+def phase_multi_pipelines(card, dev, fixed, mesh_devices, spatial_devices):
+    """10d: compensate_arr_3D at OFOptions() defaults through the mesh
+    executor (phase 6b's T=4 recording; resident and host-staged; bit-
+    identical to the batched executor) and the spatial executor (T=2;
+    registered volumes against batched at ``agreement_bar`` of batched on
+    the frames scaled by ``SCALES``; the frames solved on one device
+    counted). Returns (mesh host launches, mesh replays, spatial
+    launches)."""
+    from flowreg3d_tpu_torch.parallel import executors as tex
+
+    frames = recording(fixed, PIPELINE_T)
+    tex.clear_frame_graphs()
+    # batched named: on several cards the default config is the mesh
+    batched = dict(parallelization="batched")
+    reg_b, flows_b, _, _ = run_pipeline(frames, fixed, True, dev, True,
+                                        **batched)
+    mesh_cfg = dict(parallelization="mesh", devices=mesh_devices)
+    tex.clear_frame_graphs()
+    reset_counts()
+    reg_m, flows_m, first_s, info = run_pipeline(frames, fixed, True, dev,
+                                                 True, **mesh_cfg)
+    launches = read_counts()
+    graphs = tex.frame_graphs()
+    reps = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for g in graphs:
+        for k, v in replayed(g).items():
+            reps[k] += v
+    same = bool(np.array_equal(reg_m, reg_b)
+                and np.array_equal(flows_m, flows_b))
+    reg_h, flows_h, _, info_h = run_pipeline(frames, fixed, True, dev, True,
+                                             device_resident=False,
+                                             **mesh_cfg)
+    same_h = bool(np.array_equal(reg_h, reg_b)
+                  and np.array_equal(flows_h, flows_b))
+    _, _, warm_s, _ = run_pipeline(frames, fixed, True, dev, True,
+                                   **mesh_cfg)
+    layout = sorted({str(g.device) for g in graphs})
+    log(f"  10d mesh pipeline over {mesh_devices or 'every card'} "
+        f"(graphs on {layout}), T={PIPELINE_T} at OFOptions() defaults: ran "
+        f"{info}, host-staged ran {info_h}; bit-identical to batched: "
+        f"resident {same}, host-staged {same_h}; host launches {launches}, "
+        f"replays ran {reps}; first {first_s:.2f} s, warm {warm_s:.3f} s, "
+        f"{PIPELINE_T / warm_s:.4f} volumes/s; card {card}")
+    check(info == dict(resident=True, executor="mesh")
+          and info_h == dict(resident=False, executor="mesh"),
+          f"10d mesh ran {info} / {info_h}")
+    check(same and same_h, "10d: the mesh pipeline is not bit-identical to "
+          "batched")
+    tex.clear_frame_graphs()
+
+    t2 = frames[:2]
+    reg_b2, _, _, _ = run_pipeline(t2, fixed, True, dev, True, **batched)
+    spread = min(psnr(a, b) for scale in SCALES for a, b in zip(
+        reg_b2, run_pipeline(t2 * np.float32(scale), fixed, True, dev,
+                             True, **batched)[0]))
+    bar = agreement_bar(spread)
+    tex.clear_frame_graphs()
+    stats = {}
+    reset_counts()
+    reg_sp, flows_sp, s_sp, info_sp = run_pipeline(
+        t2, fixed, True, dev, True, stats=stats, parallelization="spatial",
+        devices=spatial_devices)
+    sp_launches = read_counts()
+    agree = [psnr(a, b) for a, b in zip(reg_b2, reg_sp)]
+    single = stats["executor_info"]["single_device_frames"]
+    log(f"  10d spatial pipeline over {[str(d) for d in spatial_devices]}, "
+        f"T=2 at OFOptions() defaults: ran {info_sp} in {s_sp:.2f} s; "
+        f"registered vs batched {[round(a, 2) for a in agree]} dB (>= "
+        f"{bar:.2f}; batched on frames scaled by {SCALES}: at least "
+        f"{spread:.2f} dB); frames solved on one device {single}; launches "
+        f"{sp_launches}")
+    check(info_sp["executor"] == "spatial" and not info_sp["resident"],
+          f"10d spatial ran {info_sp}")
+    check(min(agree) >= bar, f"10d spatial: {agree} dB against batched, bar "
+          f"{bar} (spread {spread} dB)")
+    check(np.isfinite(flows_sp).all(), "10d spatial: non-finite flows")
+    return launches, reps, sp_launches
+
+
+def phase_mesh_long(card, dev, fixed, n_frames=24):
+    """10e, on more than one card: phase 6c's T=24 u16 recording at
+    OFOptions() defaults through the default config (the mesh over every
+    card) against the batched executor on one card: bit-identical, warm
+    volumes/s of each (the first run of each captures its graphs), and the
+    two executors alone. Returns {config: warm volumes/s}."""
+    import torch
+
+    from flowreg3d_tpu_torch.parallel import executors as tex
+    from flowreg3d_tpu_torch.pipeline import OFOptions
+    from flowreg3d_tpu_torch.pipeline.device_pipeline import preprocess
+
+    o = OFOptions()
+    frames = np.clip(np.rint(recording(fixed, n_frames, period=PIPELINE_T)
+                             * 10000), 0, 65535).astype(np.uint16)
+    reference = fixed * 10000.0
+    out, vols = {}, {}
+    for tag, config in (("batched", dict(parallelization="batched")),
+                        ("default", {})):
+        tex.clear_frame_graphs()
+        reg, _, first_s, info = run_pipeline(frames, reference, True, dev,
+                                             options=o, **config)
+        times = [run_pipeline(frames, reference, True, dev, options=o,
+                              **config)[2] for _ in range(2)]
+        out[tag], vols[tag] = (reg, info), n_frames / min(times)
+        log(f"  10e T={n_frames} u16 recording, {tag} config: ran {info}; "
+            f"first {first_s:.2f} s, warm {[round(t, 3) for t in times]} s, "
+            f"{vols[tag]:.4f} volumes/s; card {card}")
+        del reg
+    # the executors alone on 8 float frames, warm (no upload, download or
+    # preprocessing): how far the frames themselves run side by side
+    raw = torch.from_numpy(recording(fixed, 8, period=PIPELINE_T)[..., None]
+                           ).to(dev)
+    ref_raw = torch.from_numpy(fixed[..., None]).to(dev)
+    proc, ref_proc = preprocess(raw, o, ref_raw), preprocess(ref_raw, o)
+    w_init = torch.zeros(SHAPE + (3,), device=dev)
+    ms = {}
+    for name in ("batched", "mesh"):
+        ex = tex.get_executor(name, device=dev)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ex.process_batch(raw, proc, ref_raw, ref_proc, w_init, "cubic",
+                             None, o.to_dict())
+            torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t) / raw.shape[0]
+    del raw, proc
+    tex.clear_frame_graphs()
+    same = bool(np.array_equal(out["batched"][0], out["default"][0]))
+    log(f"  10e mesh over every card against batched on {dev}: "
+        f"bit-identical {same}; {vols['default'] / vols['batched']:.3f} "
+        f"times the volumes/s; the executors alone on 8 frames, warm ms a "
+        f"frame {ms}; card {card}")
+    check(out["default"][1] == dict(resident=True, executor="mesh"),
+          f"10e: the default config ran {out['default'][1]}")
+    check(same, "10e: the mesh over every card is not bit-identical to "
+          "batched")
+    return vols
+
+
+def phase_multi_gpu(card, dev, fixed):
+    """Phase 10: the multi-GPU execution paths. One card: the mesh executor
+    over [cuda:0] and the Z-sharded paths over [cuda:0, cuda:0] (two shards
+    of one card); more cards: the same, then both over every card, one
+    shard each, and the T=24 recording through the mesh (10e). Returns (timing rows of the slab kernels, counts, replays,
+    summary)."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    pair = [dev, dev]
+    layouts = [(None if n_cards == 1 else [dev], pair)]
+    if n_cards > 1:
+        layouts.append((None, [torch.device("cuda", i)
+                               for i in range(n_cards)]))
+    log(f"phase 10: multi-GPU execution on {n_cards} card(s); layouts "
+        f"(mesh, spatial): "
+        f"{[(m or 'every card', [str(d) for d in s]) for m, s in layouts]}")
+    timed = phase_slab_kernels(card, dev)
+    fixed_np, moving_np = make_pair(SHAPE)
+    fixed_t, moving_t = (torch.from_numpy(a).to(dev)
+                         for a in (fixed_np, moving_np))
+    counts, replays, summary = {}, {}, {}
+    for i, (mesh_devices, spatial_devs) in enumerate(layouts):
+        sfx = "" if i == 0 else "_all_cards"
+        phase_level_sharded(card, dev, spatial_devs)
+        for tag, params in (("spatial", DIRECT_DEFAULTS),
+                            ("spatial_defaults", CANONICAL)):
+            counts[tag + sfx], summary[tag + sfx + "_ms"] = \
+                phase_spatial_step(card, dev, spatial_devs, tag, params,
+                                   fixed_t, moving_t)
+        phase_spatial_convergent(card, dev, spatial_devs)
+        (counts["mesh" + sfx], replays["mesh" + sfx],
+         counts["spatial_pipeline" + sfx]) = phase_multi_pipelines(
+            card, dev, fixed, mesh_devices, spatial_devs)
+    if n_cards > 1:
+        summary["mesh_T24_volumes_per_s"] = phase_mesh_long(card, dev, fixed)
+    return timed, counts, replays, summary
+
+
 def phase_direct_timing(card, fixed_t, moving_t, n=3):
     import torch
 
@@ -1950,10 +2642,14 @@ def main():
     vols_t24 = t24["volumes_per_s"]
     counts["pipeline_cc"], replays["pipeline_cc"], vols_cc = phase_cc(
         card, dev, fixed)
-    del fixed
     (counts["pipeline_file"], replays["pipeline_file"],
      vols_file) = phase_file_pipeline(card, dev, t24, profile=args.profile)
     del t24
+    slab_rows, multi_counts, multi_replays, multi = phase_multi_gpu(
+        card, dev, fixed)
+    del fixed
+    counts.update(multi_counts)
+    replays.update(multi_replays)
 
     kernels = []
     for row in rows:
@@ -1962,6 +2658,9 @@ def main():
         row["launches"] = counts[path][row["name"]] if path in counts else 0
         row["launches_by_path"] = {k: c[row["name"]]
                                    for k, c in counts.items()}
+        if row["name"] in slab_rows:
+            row["slab"] = {k: (list(v) if k == "shape" else v)
+                           for k, v in slab_rows[row["name"]].items()}
         row["replayed_by_path"] = {k: c[row["name"]]
                                    for k, c in replays.items()}
         kernels.append(row)
@@ -1972,8 +2671,8 @@ def main():
         f"{vols_file['default']:.4f}, without prefetch and the async writer "
         f"{vols_file['plain']:.4f}); batched against sequential "
         f"bit-identical { {k: v['same'] for k, v in executors.items()} }, "
-        f"warm ms a frame { {k: v['ms'] for k, v in executors.items()} } "
-        f"on {card}")
+        f"warm ms a frame { {k: v['ms'] for k, v in executors.items()} }; "
+        f"sharded steps warm ms {multi} on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

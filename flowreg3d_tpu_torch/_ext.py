@@ -44,13 +44,17 @@ SIGNATURES = {
                        _I, _I, _P),
     # xp, out, B, Z, Y, X, stream
     "median5_f32": (_P, _P, _I, _I, _I, _I, _P),
-    # duvw, base, psi, P, M, N, a, a - 1, 0.5/hx, 0.5/hy, 0.5/hz, stream
-    "psi_field_f32": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P),
-    # duvw, base, sj, psi, P, M, N, ax, ay, az, parity, stream
+    # duvw, base, psi, P, M, N, a, a - 1, 0.5/hx, 0.5/hy, 0.5/hz, z_lo,
+    # z_hi, stream
+    "psi_field_f32": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I,
+                      _P),
+    # duvw, base, sj, psi, P, M, N, ax, ay, az, parity, z_off, z_lo, z_hi,
+    # stream
     "sor_halfsweep_psi_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
-                              _P),
-    # duvw, base, sj, P, M, N, ax, ay, az, parity, stream
-    "sor_halfsweep_const_f32": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
+                              _I, _I, _I, _P),
+    # duvw, base, sj, P, M, N, ax, ay, az, parity, z_off, z_lo, z_hi, stream
+    "sor_halfsweep_const_f32": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I,
+                                _I, _I, _P),
 }
 
 # what the last build printed (ptxas register / spill report), for logs

@@ -109,6 +109,35 @@ def _median_increments(du, dv, dw, use_kernels):
     return du, dv, dw
 
 
+def level_alpha(alpha, i, eff_min_level, eta):
+    """Level i's smoothness weights: alpha scaled by eta^(-i/2), except at
+    the finest level solved."""
+    alpha_scaling = 1.0 if i == eff_min_level else eta ** (-0.5 * i)
+    return tuple(alpha_scaling * a for a in alpha)
+
+
+def level_step(f1, f2, u, v, w, weight, h, alpha, motion_tensor, iterations,
+               update_lag, a_vec, a_smooth, use_kernels):
+    """One level after its resizes: warp ``f2`` by the current flow, the
+    motion tensor, the SOR solve, the median of the increments; returns the
+    accumulated flow (u, v, w), each with its one-voxel ring. f1/f2/weight
+    (p,m,n,C) level volumes, h = (hz, hy, hx)."""
+    hz, hy, hx = h
+    # warp by the current flow so the solver sees the residual
+    tmp = warp(f2, u[_I] / hx, v[_I] / hy, w[_I] / hz, f1, 3, use_kernels)
+    Jc = torch.stack([
+        torch.stack(motion_tensor(f1[..., c], tmp[..., c], hz, hy, hx))
+        for c in range(f1.shape[-1])], dim=1)          # (10, C, p, m, n)
+    weight = torch.nn.functional.pad(weight.movedim(-1, 0),
+                                     (1, 1, 1, 1, 1, 1))
+    du, dv, dw = compute_flow_level_cl(
+        Jc, weight, u, v, w, alpha, iterations, update_lag, a_vec, a_smooth,
+        hx, hy, hz, use_kernels=use_kernels)
+    if min(f1.shape[:3]) > 5:
+        du, dv, dw = _median_increments(du, dv, dw, use_kernels)
+    return u + du, v + dv, w + dw
+
+
 def pyramid_config_key(shape, n_channels, alpha=(2.0, 2.0, 2.0),
                        update_lag=10, iterations=20, min_level=0, levels=50,
                        eta=0.8, a_smooth=0.5, a_data=0.45,
@@ -169,30 +198,11 @@ def build_pyramid(shape, n_channels, alpha, update_lag, iterations,
                 u, v, w = (add_boundary(resize_volume(f[_I], size,
                                                       dtype=dtype))
                            for f in (u, v, w))
-            # warp by the current flow so the solver sees the residual
-            tmp = warp(f2_level, u[_I] / hx, v[_I] / hy, w[_I] / hz,
-                       f1_level, 3, use_kernels)
-
-            Jc = torch.stack([
-                torch.stack(motion_tensor(f1_level[..., c], tmp[..., c],
-                                          hz, hy, hx))
-                for c in range(n_channels)], dim=1)     # (10, C, p, m, n)
-            weight_level = resize_volume(weight, size, dtype=dtype)
-            weight_level = torch.nn.functional.pad(
-                weight_level.movedim(-1, 0), (1, 1, 1, 1, 1, 1))
-
-            alpha_scaling = 1.0 if i == eff_min_level else eta ** (-0.5 * i)
-            alpha_tmp = tuple(alpha_scaling * a for a in alpha)
-
-            du, dv, dw = compute_flow_level_cl(
-                Jc, weight_level, u, v, w, alpha_tmp, iterations,
-                update_lag, a_vec, a_smooth, hx, hy, hz,
-                use_kernels=use_kernels)
-            if min(size) > 5:
-                du, dv, dw = _median_increments(du, dv, dw, use_kernels)
-            u = u + du
-            v = v + dv
-            w = w + dw
+            u, v, w = level_step(
+                f1_level, f2_level, u, v, w,
+                resize_volume(weight, size, dtype=dtype), (hz, hy, hx),
+                level_alpha(alpha, i, eff_min_level, eta), motion_tensor,
+                iterations, update_lag, a_vec, a_smooth, use_kernels)
 
         flow = torch.stack([u[_I], v[_I], w[_I]], dim=-1)
         if eff_min_level > 0:

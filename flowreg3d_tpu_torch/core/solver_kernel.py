@@ -34,11 +34,12 @@ def _stencil_sum(ax, ay, az, dtype):
     return float(t(2.0) * (t(ax) + t(ay) + t(az)))
 
 
-def _parity_mask(P, M, N, parity, device):
-    """(P-2, M-2, N-2) mask of interior cells with (z+y+x) % 2 == parity."""
+def _parity_mask(P, M, N, parity, device, z_off=0):
+    """(P-2, M-2, N-2) mask of interior cells with (z+y+x) % 2 == parity;
+    ``z_off`` is the global z of local row 0 (a slab of the volume)."""
     z, y, x = (torch.arange(1, n - 1, device=device) for n in (P, M, N))
-    return ((z[:, None, None] + y[None, :, None] + x[None, None, :]) % 2
-            == parity)
+    return (((z[:, None, None] + z_off) + y[None, :, None] + x[None, None, :])
+            % 2 == parity)
 
 
 def _clamped_nbr_sum(f, ax, ay, az):

@@ -16,6 +16,14 @@ per-axis clamped indices and the half-sweeps take ``base_ghost + inc_centre``
 across a Neumann face, which is what ``set_boundary_3d`` would have put
 there. The caller applies ``set_boundary_3d`` to the result.
 
+Every function takes an optional ``slab = (z_off, z_lo, z_hi)`` for a
+z-slab of the volume with one ghost row a side (the Z-sharded solver,
+``parallel/spatial.py``): ``z_off`` the global z of local row 0 (the
+red-black parity is the volume's), ``z_lo`` the local row of the volume's
+low face (1, or 0 when row 0 is a neighbour's row), ``z_hi`` the volume's
+last interior row in local terms (rows past it are inert, the high face
+applies there). The default, the whole volume, is ``(0, 1, P - 2)``.
+
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises, and counts the launch.
 """
@@ -72,11 +80,48 @@ def _clamped_shift(f, axis, step):
                      dim=axis)
 
 
-def psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out=None):
+def _slab(slab, P):
+    """(z_off, z_lo, z_hi) of a slab; None is the whole volume."""
+    return (0, 1, P - 2) if slab is None else tuple(int(v) for v in slab)
+
+
+def _clamp_rows(f, lo, hi):
+    """``f`` (..., P, M, N) with each z-row q replaced by row clamp(q, lo,
+    hi)."""
+    P = f.shape[-3]
+    idx = torch.arange(P, device=f.device).clamp(lo, hi)
+    return f.index_select(-3, idx)
+
+
+def _set_faces(duvw, z_lo, z_hi):
+    """The increments with the ring's values a sweep reads: y and x Neumann
+    copies, and the z-faces a slab holds (row 0 from row 1 at the low face,
+    the rows past ``z_hi`` from row ``z_hi``); the neighbours' ghost rows
+    stay as they are."""
+    P = duvw.shape[-3]
+    if (z_lo, z_hi) == (1, P - 2):
+        return set_boundary_3d(duvw.clone())
+    f = duvw.clone()
+    f[..., 0, :] = f[..., 1, :]
+    f[..., -1, :] = f[..., -2, :]
+    f[..., :, 0] = f[..., :, 1]
+    f[..., :, -1] = f[..., :, -2]
+    i_lo = 1 if z_lo == 1 else 0
+    return _clamp_rows(f, i_lo, min(max(z_hi, i_lo), P - 1))
+
+
+def psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out=None,
+                    slab=None):
     """Plain version of ``psi_field_f32``: a * (|grad(base + inc)|^2 + eps)
     ^ (a - 1) over the full grid, inc read with its ring set by
-    ``set_boundary_3d``; rsqrt when a - 1 == -0.5."""
-    tot = base + set_boundary_3d(duvw.clone())
+    ``set_boundary_3d``; rsqrt when a - 1 == -0.5. In a slab the increment's
+    z is clamped to [z_lo, z_hi] and the grid's to [0, z_hi + 1]."""
+    P = duvw.shape[-3]
+    _, z_lo, z_hi = _slab(slab, P)
+    tot = base + _set_faces(duvw, z_lo, z_hi)
+    g_hi = min(max(z_hi + 1, 0), P - 1)
+    if g_hi < P - 1:
+        tot = _clamp_rows(tot, 0, g_hi)
     g = torch.zeros_like(tot[0])
     for c in range(3):
         for axis, ih in ((0, ihz), (1, ihy), (2, ihx)):
@@ -90,10 +135,13 @@ def psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out=None):
     return out.copy_(psi)
 
 
-def _halfsweep_plain(duvw, base, sj, weights, sw_sum, parity):
+def _halfsweep_plain(duvw, base, sj, weights, sw_sum, parity, slab=None):
     """One masked half-sweep in place on the interior of ``duvw``; weights
-    and sw_sum are tensors over the interior or Python floats."""
-    tot = base + set_boundary_3d(duvw.clone())
+    and sw_sum are tensors over the interior or Python floats. In a slab
+    only rows 1..z_hi are updated."""
+    P = duvw.shape[-3]
+    z_off, z_lo, z_hi = _slab(slab, P)
+    tot = base + _set_faces(duvw, z_lo, z_hi)
     c = duvw[(slice(None),) + _I]
     s = sj[(slice(None),) + _I]
     du, dv, dw = c[0], c[1], c[2]
@@ -110,12 +158,14 @@ def _halfsweep_plain(duvw, base, sj, weights, sw_sum, parity):
         den = s[k] + sw_sum
         frac = torch.where(den != 0, num / den, torch.zeros_like(den))
         new.append((1.0 - OMEGA) * old + OMEGA * frac)
-    mask = _parity_mask(*duvw.shape[1:], parity, duvw.device)
+    mask = _parity_mask(*duvw.shape[1:], parity, duvw.device, z_off)
+    if z_hi < P - 2:
+        mask[max(z_hi, 0):] = False
     c.copy_(torch.where(mask, torch.stack(new), c))
     return duvw
 
 
-def halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, parity):
+def halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, parity, slab=None):
     """Plain version of ``sor_halfsweep_psi_f32``: weights
     0.5 (psi_c + psi_nbr) a_dir."""
     pc = psi[_I]
@@ -125,17 +175,18 @@ def halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, parity):
     sw_sum = weights["xm"]
     for d in _DIRS[1:]:
         sw_sum = sw_sum + weights[d]
-    return _halfsweep_plain(duvw, base, sj, weights, sw_sum, parity)
+    return _halfsweep_plain(duvw, base, sj, weights, sw_sum, parity, slab)
 
 
-def halfsweep_plain(duvw, base, sj, ax, ay, az, parity):
+def halfsweep_plain(duvw, base, sj, ax, ay, az, parity, slab=None):
     """Plain version of ``sor_halfsweep_const_f32``: weights a_dir."""
     t = _scalar_type(duvw.dtype)
     weights = dict(xm=ax, xp=ax, ym=ay, yp=ay, zm=az, zp=az)
     sw_sum = t(ax)
     for d in _DIRS[1:]:
         sw_sum = sw_sum + t(weights[d])
-    return _halfsweep_plain(duvw, base, sj, weights, float(sw_sum), parity)
+    return _halfsweep_plain(duvw, base, sj, weights, float(sw_sum), parity,
+                            slab)
 
 
 def _check_stacks(name, duvw, base, sj=None, psi=None):
@@ -164,48 +215,50 @@ def _check_stacks(name, duvw, base, sj=None, psi=None):
     return True
 
 
-def psi_field(duvw, base, a, expo, ihx, ihy, ihz, out=None):
+def psi_field(duvw, base, a, expo, ihx, ihy, ihz, out=None, slab=None):
     """Diffusivity psi (P,M,N) of base + duvw; into ``out`` when given."""
     if not _check_stacks("psi_field", duvw, base, psi=out):
-        return psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out)
+        return psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out, slab)
     _, P, M, N = duvw.shape
+    _, z_lo, z_hi = _slab(slab, P)
     if out is None:
         out = torch.empty((P, M, N), dtype=duvw.dtype, device=duvw.device)
     with torch.cuda.device(duvw.device):
         rc = _ext.lib().psi_field_f32(
             duvw.data_ptr(), base.data_ptr(), out.data_ptr(), P, M, N,
             float(a), float(expo), float(ihx), float(ihy), float(ihz),
-            _ext.stream_of(duvw))
+            z_lo, z_hi, _ext.stream_of(duvw))
     _ext.raise_on_error(rc, "psi_field_f32")
     psi_field.launches += 1
     return out
 
 
-def halfsweep_psi(duvw, base, sj, psi, ax, ay, az, parity):
+def halfsweep_psi(duvw, base, sj, psi, ax, ay, az, parity, slab=None):
     """One red (parity 0) or black (1) psi half-sweep, in place on duvw."""
     if not _check_stacks("halfsweep_psi", duvw, base, sj, psi):
-        return halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, parity)
+        return halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, parity,
+                                   slab)
     _, P, M, N = duvw.shape
     with torch.cuda.device(duvw.device):
         rc = _ext.lib().sor_halfsweep_psi_f32(
             duvw.data_ptr(), base.data_ptr(), sj.data_ptr(), psi.data_ptr(),
             P, M, N, float(ax), float(ay), float(az), int(parity),
-            _ext.stream_of(duvw))
+            *_slab(slab, P), _ext.stream_of(duvw))
     _ext.raise_on_error(rc, "sor_halfsweep_psi_f32")
     halfsweep_psi.launches += 1
     return duvw
 
 
-def halfsweep(duvw, base, sj, ax, ay, az, parity):
+def halfsweep(duvw, base, sj, ax, ay, az, parity, slab=None):
     """One constant-weight (a_smooth == 1) half-sweep on the unfolded base,
     in place on duvw."""
     if not _check_stacks("halfsweep", duvw, base, sj):
-        return halfsweep_plain(duvw, base, sj, ax, ay, az, parity)
+        return halfsweep_plain(duvw, base, sj, ax, ay, az, parity, slab)
     _, P, M, N = duvw.shape
     with torch.cuda.device(duvw.device):
         rc = _ext.lib().sor_halfsweep_const_f32(
             duvw.data_ptr(), base.data_ptr(), sj.data_ptr(), P, M, N,
-            float(ax), float(ay), float(az), int(parity),
+            float(ax), float(ay), float(az), int(parity), *_slab(slab, P),
             _ext.stream_of(duvw))
     _ext.raise_on_error(rc, "sor_halfsweep_const_f32")
     halfsweep.launches += 1

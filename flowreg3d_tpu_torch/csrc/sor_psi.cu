@@ -35,6 +35,20 @@
 // tot_nbr = u_ghost + du_c (the base ring plus the centre increment: the
 // value set_boundary_3d would have copied into the increment's ring).
 //
+// Slab mode (the Z-sharded solver, parallel/spatial.py): a shard holds a
+// slab of z-rows with one ghost row on each side, which its neighbours'
+// edge rows fill, and three integers place it in the volume:
+//   z_off  the global z of its local row 0, so that the red-black parity
+//          stays the volume's: (z + z_off + y + x) % 2 == parity;
+//   z_lo   the local row of the volume's low Neumann face: 1 when the slab
+//          starts the volume, 0 (none) otherwise, when row 0 is a ghost;
+//   z_hi   the volume's last interior row in local terms. Rows past it are
+//          inert (shard padding), and the high face applies at z_hi.
+// psi_field clamps the increment's z to [z_lo, z_hi] (not to [1, P-2]) and
+// its z-neighbours to [0, z_hi + 1]; a half-sweep updates rows 1..z_hi and
+// takes the face rule at z == z_lo and z == z_hi. The whole volume is the
+// slab (0, 1, P-2), and then both kernels do exactly what they did before.
+//
 // Numerics: each expression is written operation for operation like the
 // plain PyTorch versions in core/solver_psi_kernel.py, in the same order,
 // and the library is built with --fmad=false, so kernel and plain version
@@ -94,7 +108,8 @@ __global__ void __launch_bounds__(PSI_THREADS)
     psi_field_kernel(const float* __restrict__ duvw,
                      const float* __restrict__ base, float* __restrict__ psi,
                      int P, int M, int N, float a, float expo, float ihx,
-                     float ihy, float ihz, int zc) {
+                     float ihy, float ihz, int zc, int i_lo, int i_hi,
+                     int g_hi) {
   __shared__ float tot[SLOTS][3][HCELLS];
   const int tid = threadIdx.y * PTX + threadIdx.x;
   const int x0 = blockIdx.x * PTX, y0 = blockIdx.y * PTY;
@@ -117,8 +132,10 @@ __global__ void __launch_bounds__(PSI_THREADS)
   }
   float b0[FETCH][3], d0[FETCH][3], b1[FETCH][3], d1[FETCH][3];
   auto fetch = [&](int q, float (&b)[FETCH][3], float (&d)[FETCH][3]) {
-    const int zq = clampi(q, 0, P - 1);  // plane q, clamped to the grid
-    const long long bo = zq * plane, io = clampi(zq, 1, P - 2) * plane;
+    // plane q, clamped to the grid (to z_hi + 1 in a slab past the volume's
+    // high face); its increment's z clamped to [z_lo, z_hi]
+    const int zq = clampi(q, 0, g_hi);
+    const long long bo = zq * plane, io = clampi(zq, i_lo, i_hi) * plane;
 #pragma unroll
     for (int l = 0; l < FETCH; ++l)
 #pragma unroll
@@ -206,20 +223,20 @@ __global__ void halfsweep_kernel(float* __restrict__ duvw,
                                  const float* __restrict__ sj,
                                  const float* __restrict__ psi, int P, int M,
                                  int N, float ax, float ay, float az,
-                                 int parity) {
+                                 int parity, int z_off, int z_lo, int z_hi) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
   const int z = blockIdx.z + 1;
-  if (y > M - 2) return;
-  const int x = 1 + ((parity + z + y + 1) & 1) + 2 * k;
+  if (y > M - 2 || z > z_hi) return;
+  const int x = 1 + ((parity + z + z_off + y + 1) & 1) + 2 * k;
   if (x > N - 2) return;
 
   const long long plane = (long long)M * N;
   const long long vol = plane * P;
   const long long c = ((long long)z * M + y) * N + x;
   const long long off[6] = {-1, 1, -(long long)N, (long long)N, -plane, plane};
-  const bool ghost[6] = {x == 1, x == N - 2, y == 1, y == M - 2, z == 1,
-                         z == P - 2};
+  const bool ghost[6] = {x == 1, x == N - 2, y == 1, y == M - 2, z == z_lo,
+                         z == z_hi};
 
   float wt[6];
   if (kPsi) {
@@ -277,7 +294,8 @@ dim3 sweep_grid(int P, int M, int N, dim3 block) {
 
 extern "C" int psi_field_f32(const void* duvw, const void* base, void* psi,
                              int P, int M, int N, float a, float expo,
-                             float ihx, float ihy, float ihz, void* stream) {
+                             float ihx, float ihy, float ihz, int z_lo,
+                             int z_hi, void* stream) {
   // Chunks of z: a block's time is about its planes (two of prologue and
   // zc walked) times a latency-bound step, so take the chunk count that
   // minimises rounds of resident blocks x (zc + 2); a large level walks
@@ -298,32 +316,39 @@ extern "C" int psi_field_f32(const void* duvw, const void* base, void* psi,
     if (best < 0 || cost < best) best = cost, zc = c;
   }
   const dim3 grid(tiles_x, tiles_y, (P + zc - 1) / zc);
+  // the slab's clamps, kept inside the grid whatever the slab (a shard
+  // wholly past the volume's end has z_hi < 0: its rows are inert)
+  const int i_lo = z_lo == 1 ? 1 : 0;
+  const int i_hi = z_hi < i_lo ? i_lo : (z_hi > P - 1 ? P - 1 : z_hi);
+  const int g_hi = z_hi + 1 < 0 ? 0 : (z_hi + 1 > P - 1 ? P - 1 : z_hi + 1);
   psi_field_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)duvw, (const float*)base, (float*)psi, P, M, N, a, expo,
-      ihx, ihy, ihz, zc);
+      ihx, ihy, ihz, zc, i_lo, i_hi, g_hi);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sor_halfsweep_psi_f32(void* duvw, const void* base,
                                      const void* sj, const void* psi, int P,
                                      int M, int N, float ax, float ay,
-                                     float az, int parity, void* stream) {
+                                     float az, int parity, int z_off,
+                                     int z_lo, int z_hi, void* stream) {
   const dim3 block(32, 8, 1);
   halfsweep_kernel<true><<<sweep_grid(P, M, N, block), block, 0,
                            (cudaStream_t)stream>>>(
       (float*)duvw, (const float*)base, (const float*)sj, (const float*)psi,
-      P, M, N, ax, ay, az, parity & 1);
+      P, M, N, ax, ay, az, parity & 1, z_off & 1, z_lo, z_hi);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sor_halfsweep_const_f32(void* duvw, const void* base,
                                        const void* sj, int P, int M, int N,
                                        float ax, float ay, float az,
-                                       int parity, void* stream) {
+                                       int parity, int z_off, int z_lo,
+                                       int z_hi, void* stream) {
   const dim3 block(32, 8, 1);
   halfsweep_kernel<false><<<sweep_grid(P, M, N, block), block, 0,
                             (cudaStream_t)stream>>>(
       (float*)duvw, (const float*)base, (const float*)sj, nullptr, P, M, N,
-      ax, ay, az, parity & 1);
+      ax, ay, az, parity & 1, z_off & 1, z_lo, z_hi);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 Counterpart of ``flowreg3d_tpu/parallel/executors.py``: the executor
 registry (with the reference's names as aliases), ``BaseExecutor3D`` (the
 weight volume, the flow configuration key, ``process_batch`` with the
-cross-correlation prealignment) and two executors:
+cross-correlation prealignment) and four executors:
 
 - ``sequential``: a host loop over frames, every operation launched
   eagerly; the check the batched executor is held against;
@@ -16,7 +16,21 @@ cross-correlation prealignment) and two executors:
   graph holds one frame's working memory whatever the batch length, so the
   JAX executor's ``chunk`` / ``voxel_budget`` (frames per ``lax.map``)
   have nothing to bound here and are not taken; progress is reported per
-  frame.
+  frame;
+- ``mesh``: the batched executor with every visible card as its default
+  ``devices`` (a device may repeat). The batched executor splits the
+  frames into contiguous chunks, one a device of ``devices`` (by default
+  its own device alone, one chunk), copies the references to each device,
+  replays each device's frames through that device's own ``FrameGraph``
+  on its current stream, and queues every device's frames before any
+  result is read; ``run_shards`` leaves each chunk's results on its device
+  (the resident engine finalizes and downloads them there), ``_run``
+  gathers them on the executor's device;
+- ``spatial``: one frame at a time, its pyramid Z-sharded over the devices
+  (``parallel/spatial_pyramid.get_displacement_sharded``), eager; a frame
+  whose flow needs z-samples beyond the warp's halo is recomputed on the
+  single-device path, and ``get_info()['single_device_frames']`` counts
+  those frames.
 
 Per frame: the flow from the port's pyramid (``core/pyramid.build_pyramid``),
 then the warp of the raw frame onto the reference. Inputs are uploaded once
@@ -24,8 +38,8 @@ and every result stays on the executor's device; the caller downloads.
 ``use_kernels=True`` runs the CUDA kernels on CUDA tensors (the JAX
 package's ``use_pallas``); ``use_kernels=False`` runs their plain PyTorch
 versions. A failed capture or replay raises: nothing falls back to the eager
-loop. Not ported yet, and raising where asked for: the mesh and spatial
-executors (ROADMAP.md Queue 1 item 11).
+loop. ``get_executor(None)`` picks ``mesh`` when more than one card is
+visible, else ``batched``, as JAX does.
 """
 
 import time
@@ -37,13 +51,16 @@ from flowreg3d_tpu_torch import _ext
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch.core.pyramid import build_pyramid, pyramid_config_key
 from flowreg3d_tpu_torch.ops.warp import warp
+from flowreg3d_tpu_torch.parallel.mesh import (batch_devices, batch_ranges,
+                                               replicate, shard_batch)
+from flowreg3d_tpu_torch.parallel.spatial_pyramid import (
+    get_displacement_sharded)
 from flowreg3d_tpu_torch.util.xcorr_prealignment import (
     estimate_rigid_xcorr_device)
 
 _EXECUTORS = {}
 _ALIASES = {"sequential3d": "sequential", "threading3d": "batched",
             "multiprocessing3d": "mesh"}
-_NOT_PORTED = ("mesh", "spatial")
 _ORDERS = {"cubic": 3, "linear": 1}
 
 
@@ -56,13 +73,12 @@ def list_executors():
 
 
 def get_executor(name=None, **kwargs):
-    """Executor by name or alias; None auto-selects 'batched' (the port runs
-    one device; 'mesh' waits for ROADMAP.md Queue 1 item 11)."""
-    name = "batched" if name is None else _ALIASES.get(name, name)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"executor '{name}' is not ported to flowreg3d_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 11); use 'batched' or 'sequential'")
+    """Executor by name or alias; None auto-selects 'mesh' when more than
+    one card is visible, else 'batched'."""
+    if name is None:
+        many = torch.cuda.is_available() and torch.cuda.device_count() > 1
+        name = "mesh" if many else "batched"
+    name = _ALIASES.get(name, name)
     if name not in _EXECUTORS:
         raise ValueError(f"Unknown executor '{name}'; have {list_executors()}")
     return _EXECUTORS[name](**kwargs)
@@ -132,7 +148,9 @@ class FrameGraph:
         counters = _ext.launch_counters()
         before = {k: fn.launches for k, fn in counters.items()}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # captured on a stream of the graph's own device: torch.cuda.graph's
+        # shared default stream lives on the device current at its first use
+        with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(device)):
             self.flow, self.reg = self._body()
         self.launches = {}
         for k, fn in counters.items():
@@ -163,26 +181,29 @@ class FrameGraph:
         self.replays += 1
 
 
-# the last captured graph, by (config key, interpolation, device). It holds
-# its private memory pool (1.55 GiB at OFOptions() defaults and 7.43 GiB at
-# the direct API's options at 64x512x512, PERF.md), so only one is kept: a
-# repeated call reuses it, another configuration replaces it, and
-# ``clear_frame_graphs`` frees it.
+# the last captured graph of each device, by (config key, interpolation,
+# device). A graph holds its private memory pool (1.55 GiB at OFOptions()
+# defaults and 7.43 GiB at the direct API's options at 64x512x512,
+# PERF.md), so only one is kept a device: a repeated call reuses it,
+# another configuration on that device replaces it, and
+# ``clear_frame_graphs`` frees them all.
 _GRAPHS = {}
 
 
 def frame_graph(key, order, device):
-    """The cached ``FrameGraph`` of a configuration, captured on first use
-    (dropping the graph of any other configuration first)."""
+    """The cached ``FrameGraph`` of a configuration on ``device``, captured
+    on first use (dropping that device's graph of any other configuration
+    first)."""
     k = (key, order, device)
     if k not in _GRAPHS:
-        _GRAPHS.clear()
+        for other in [g for g in _GRAPHS if g[2] == device]:
+            del _GRAPHS[other]
         _GRAPHS[k] = FrameGraph(key, order, device)
     return _GRAPHS[k]
 
 
 def frame_graphs():
-    """The captured graphs (at most one)."""
+    """The captured graphs (at most one a device)."""
     return list(_GRAPHS.values())
 
 
@@ -268,6 +289,15 @@ class BaseExecutor3D:
             for t in range(batch.shape[0])])
         return registered, total
 
+    def run_shards(self, batch, batch_proc, ref_raw, ref_proc, uvw, weight,
+                   key, order, progress_callback):
+        """The batch's frames as (start, stop, registered, flows) shards,
+        the tensors on the shard's device: here one shard, the executor's
+        own ``_run``."""
+        return [(0, batch.shape[0], *self._run(
+            batch, batch_proc, ref_raw, ref_proc, uvw, weight, key, order,
+            progress_callback))]
+
     def process_batch(self, batch, batch_proc, reference_raw, reference_proc,
                       w_init, interpolation_method="cubic",
                       progress_callback=None, flow_params=None):
@@ -328,33 +358,162 @@ class SequentialExecutor3D(BaseExecutor3D):
 
 class BatchedExecutor3D(BaseExecutor3D):
     """One CUDA-graph replay a frame (module docstring); the CPU runs the
-    frames eagerly, as ``sequential``."""
+    frames eagerly, as ``sequential``. The frames go over ``devices`` (None:
+    the executor's device alone), one contiguous chunk a device, so that
+    ``mesh`` is this executor with every visible card as its default."""
 
     name = "batched"
 
+    def __init__(self, dtype=torch.float32, device=None, use_kernels=True,
+                 devices=None):
+        super().__init__(dtype, device, use_kernels)
+        self.devices = self._devices(devices)
+
+    def _devices(self, devices):
+        return [self.device] if devices is None else batch_devices(devices)
+
+    def get_info(self):
+        info = super().get_info()
+        info.update(devices=[str(d) for d in self.devices],
+                    n_devices=len(self.devices))
+        return info
+
+    def run_shards(self, batch, batch_proc, ref_raw, ref_proc, uvw, weight,
+                   key, order, progress_callback):
+        """The batch's frames on the shards: a list of (start, stop,
+        registered, flows) per non-empty chunk, the tensors on the chunk's
+        device. A chunk's inputs are copied to its device and its frames
+        queued there; every device is given its first frame before any its
+        second, so that the cards work side by side."""
+        refs = [replicate(x, self.devices) for x in (ref_raw, ref_proc,
+                                                     weight)]
+        chunks = [shard_batch(x, self.devices)
+                  for x in (batch, batch_proc, uvw)]
+        shards = []
+        for k, ((a, b), dev) in enumerate(zip(
+                batch_ranges(batch.shape[0], len(self.devices)),
+                self.devices)):
+            if b <= a:
+                continue
+            regs = torch.empty((b - a,) + tuple(batch.shape[1:]),
+                               dtype=self.dtype, device=dev)
+            flows = torch.empty((b - a,) + tuple(batch.shape[1:4]) + (3,),
+                                dtype=self.dtype, device=dev)
+            shards.append(dict(
+                range=(a, b), dev=dev, regs=regs, flows=flows,
+                inputs=[c[k] for c in chunks],
+                frame=self._frame_fn(key, order, dev,
+                                     *(r[dev] for r in refs))))
+        for t in range(max((s["range"][1] - s["range"][0] for s in shards),
+                           default=0)):
+            for s in shards:
+                if t < s["range"][1] - s["range"][0]:
+                    raw, proc, u0 = (x[t] for x in s["inputs"])
+                    s["frame"](raw, proc, u0, s["regs"][t], s["flows"][t])
+                    if progress_callback:
+                        progress_callback(1)
+        return [(*s["range"], s["regs"], s["flows"]) for s in shards]
+
+    def _frame_fn(self, key, order, dev, ref_raw, ref_proc, weight):
+        """One frame on ``dev``: its device's graph on CUDA, else eager."""
+        if dev.type == "cuda":
+            graph = frame_graph(key, order, dev)
+            graph.set_reference(ref_raw, ref_proc, weight)
+
+            def frame(*args):
+                with torch.cuda.device(dev):
+                    graph.run(*args)
+            return frame
+        pyramid = build_pyramid(*key, device=dev)
+
+        def frame(raw, proc, uvw_t, reg_out, flow_out):
+            flow_out.copy_(pyramid(ref_proc, proc, uvw_t, weight))
+            reg_out.copy_(warp(raw, flow_out[..., 0], flow_out[..., 1],
+                               flow_out[..., 2], ref_raw, order,
+                               self.use_kernels))
+        return frame
+
     def _run(self, batch, batch_proc, ref_raw, ref_proc, uvw, weight, key,
              order, progress_callback):
+        shards = self.run_shards(batch, batch_proc, ref_raw, ref_proc, uvw,
+                                 weight, key, order, progress_callback)
+        if len(shards) == 1 and shards[0][2].device == self.device:
+            return shards[0][2:]
         regs = torch.empty(batch.shape, dtype=self.dtype, device=self.device)
         flows = torch.empty(tuple(batch.shape[:4]) + (3,), dtype=self.dtype,
                             device=self.device)
-        if self.device.type == "cuda":
-            graph = frame_graph(key, order, self.device)
-            graph.set_reference(ref_raw, ref_proc, weight)
-            frame = graph.run
-        else:
-            pyramid = build_pyramid(*key, device=self.device)
+        for a, b, r, f in shards:
+            regs[a:b].copy_(r, non_blocking=True)
+            flows[a:b].copy_(f, non_blocking=True)
+        return regs, flows
 
-            def frame(raw, proc, uvw_t, reg_out, flow_out):
-                flow_out.copy_(pyramid(ref_proc, proc, uvw_t, weight))
-                reg_out.copy_(warp(raw, flow_out[..., 0], flow_out[..., 1],
-                                   flow_out[..., 2], ref_raw, order,
-                                   self.use_kernels))
+
+class MeshExecutor3D(BatchedExecutor3D):
+    """The batched executor over a list of devices, one ``FrameGraph`` a
+    distinct device (module docstring). ``device`` is where the batch comes
+    from and the results go (None: 'cuda'); ``devices`` the shards (None:
+    every visible card, ``parallel/mesh.batch_devices``)."""
+
+    name = "mesh"
+
+    def _devices(self, devices):
+        return batch_devices(devices, self.device)
+
+
+class SpatialExecutor3D(BaseExecutor3D):
+    """Frames one at a time, each Z-sharded over ``devices`` (module
+    docstring); results on ``device`` (None: 'cuda'). ``halo_w``: the
+    warp's z halo (None: the pyramid's default)."""
+
+    name = "spatial"
+
+    def __init__(self, dtype=torch.float32, device=None, use_kernels=True,
+                 devices=None, halo_w=None):
+        super().__init__(dtype, device, use_kernels)
+        self.devices = batch_devices(devices, self.device)
+        self.halo_w = halo_w
+        self.single_device_frames = 0
+
+    def get_info(self):
+        info = super().get_info()
+        info.update(devices=[str(d) for d in self.devices],
+                    n_devices=len(self.devices), sharding="z-spatial",
+                    single_device_frames=self.single_device_frames)
+        return info
+
+    def _run(self, batch, batch_proc, ref_raw, ref_proc, uvw, weight, key,
+             order, progress_callback):
+        (_, _, alpha, update_lag, iterations, min_level, levels, eta,
+         a_smooth, a_data, const_assumption, _, _) = key
+        kw = dict(alpha=alpha, update_lag=update_lag, iterations=iterations,
+                  min_level=min_level, levels=levels, eta=eta,
+                  a_data=np.asarray(a_data), const_assumption=const_assumption,
+                  a_smooth=a_smooth, dtype=self.dtype,
+                  use_kernels=self.use_kernels)
+        if self.halo_w:
+            kw["halo_w"] = self.halo_w
+        flat = weight.reshape(-1, weight.shape[-1])
+        # a per-channel weight goes as its vector, not a volume to shard
+        wvec = flat[0] if bool((flat == flat[0]).all()) else weight
+        regs, flows = [], []
         for t in range(batch.shape[0]):
-            frame(batch[t], batch_proc[t], uvw[t], regs[t], flows[t])
+            flow, valid = get_displacement_sharded(
+                ref_proc, batch_proc[t], devices=self.devices, uvw=uvw[t],
+                weight=wvec, **kw)
+            flow = flow.to(self.device)
+            if not bool(valid):
+                self.single_device_frames += 1
+                flow = build_pyramid(*key, device=self.device)(
+                    ref_proc, batch_proc[t], uvw[t], weight)
+            regs.append(warp(batch[t], flow[..., 0], flow[..., 1],
+                             flow[..., 2], ref_raw, order, self.use_kernels))
+            flows.append(flow)
             if progress_callback:
                 progress_callback(1)
-        return regs, flows
+        return torch.stack(regs), torch.stack(flows)
 
 
 SequentialExecutor3D.register()
 BatchedExecutor3D.register()
+MeshExecutor3D.register()
+SpatialExecutor3D.register()

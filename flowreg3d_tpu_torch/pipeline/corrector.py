@@ -66,9 +66,12 @@ from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
 class RegistrationConfig:
     """Execution knobs.
 
-    ``parallelization``: None = auto ('batched'), or 'batched' /
-    'sequential' (aliases 'threading3d' / 'sequential3d'); 'mesh' and
-    'spatial' are not ported yet. ``use_kernels``: run the CUDA kernels
+    ``parallelization``: None = auto ('mesh' when more than one card is
+    visible, else 'batched'), or 'batched' / 'sequential' / 'mesh' /
+    'spatial' (aliases 'threading3d' / 'sequential3d' /
+    'multiprocessing3d'). ``devices``: the devices of 'mesh' and 'spatial'
+    (a device may repeat; None: every visible card, or the run's device on
+    the CPU). ``use_kernels``: run the CUDA kernels
     (True) or their plain PyTorch versions (False). ``device_resident``:
     None = the resident engine wherever the configuration allows it, True =
     require it, False = the host-staged path. ``profile_dir``: write a
@@ -80,6 +83,7 @@ class RegistrationConfig:
 
     verbose: bool = False
     parallelization: Optional[str] = None
+    devices: Optional[List] = None
     use_kernels: bool = True
     checkpoint: bool = False
     profile_dir: Optional[str] = None
@@ -136,9 +140,12 @@ class BatchMotionCorrector:
         self._total_frames: Optional[int] = None
         self._reference_raw_d = None
 
+        devices = ({} if self.config.devices is None
+                   else {"devices": self.config.devices})
         self.executor = get_executor(self.config.parallelization,
                                      device=self.device,
-                                     use_kernels=self.config.use_kernels)
+                                     use_kernels=self.config.use_kernels,
+                                     **devices)
         if self.config.verbose:
             print(f"Using {self.executor.name} executor "
                   f"({self.executor.get_info()})")

@@ -28,6 +28,16 @@ The stages and the download are the host-staged path's own
 ``HostStaging``), so the two paths compute the same numbers; they differ in
 what the upload carries (the native dtype here, float32 there) and where
 the registered frames are cast.
+
+The flows come from the executor's ``run_shards``: one shard on the run's
+device for the sequential and batched executors, one a device for the mesh
+executor (JAX's mesh mode; the batch is uploaded and preprocessed on the
+run's device as above, since the temporal Gaussian spans the batch). Each
+shard is finalized on its device (cast, statistics, valid flags and masks)
+and downloaded through that device's own ``HostStaging`` into its frames
+of the batch's host arrays. Only the flows the w_init tail mean needs (the
+last <= 20), and all of them when the reference is updated, come back to
+the run's device.
 """
 
 import numpy as np
@@ -49,7 +59,8 @@ _DEVICE_CAST = (np.uint8, np.int8, np.int16, np.uint16)
 def resident_supported(options, config, executor) -> bool:
     """True when the batch can run device-resident: not for a user
     ``preproc_funct`` or a flow backend (host protocols), nor for the cc
-    prealignment, which the host-staged path runs."""
+    prealignment, which the host-staged path runs; the spatial executor
+    drives its frames itself."""
     if config.device_resident is False:
         return False
     if options.preproc_funct is not None:
@@ -60,7 +71,7 @@ def resident_supported(options, config, executor) -> bool:
         return False
     if options.cc_initialization:
         return False
-    return executor.name in ("sequential", "batched")
+    return executor.name in ("sequential", "batched", "mesh")
 
 
 def preprocess(frames, options, normalization_ref=None):
@@ -128,9 +139,11 @@ class HostStaging:
 
     ``download(tensors)`` copies the i-th tensor into slot i's buffer (grown
     when a batch needs more, else reused), then into a fresh pageable numpy
-    array that the caller owns; the buffers are never handed out. With
-    ``pinned`` (a CUDA device) the buffers are page-locked and filled by
-    ``non_blocking`` copies with one sync; the CPU path does not pin.
+    array that the caller owns, or into the i-th of ``outs`` (numpy arrays of
+    the tensors' shapes and dtypes, such as slices of a whole batch's
+    arrays); the buffers are never handed out. With ``pinned`` (a CUDA
+    device) the buffers are page-locked and filled by ``non_blocking``
+    copies with one sync; the CPU path does not pin.
     """
 
     def __init__(self, pinned):
@@ -147,24 +160,25 @@ class HostStaging:
                                           pin_memory=self.pinned)
         return self.buffers[i][:nbytes].view(x.dtype).view(x.shape)
 
-    def download(self, tensors):
+    def download(self, tensors, outs=None):
         staged = [self._slot(i, x) for i, x in enumerate(tensors)]
         for s, x in zip(staged, tensors):
             s.copy_(x, non_blocking=self.pinned)
         if self.pinned:
             torch.cuda.current_stream(tensors[0].device).synchronize()
-        outs = []
-        for s in staged:
-            out = torch.empty(s.shape, dtype=s.dtype)
-            out.copy_(s)
-            outs.append(out.numpy())
+        if outs is None:
+            outs = [torch.empty(s.shape, dtype=s.dtype).numpy()
+                    for s in staged]
+        for s, out in zip(staged, outs):
+            torch.from_numpy(out).copy_(s)
         return outs
 
 
 class ResidentPipeline:
     """Per-run device state of the resident engine: the raw and processed
     reference, the weight volume and the flow configuration key, on the
-    executor's device, and the run's ``HostStaging``."""
+    executor's device, and the run's ``HostStaging`` (and one more for each
+    other device the executor's shards run on)."""
 
     def __init__(self, options, executor, reference_raw, reference_proc,
                  weight, config_key, staging):
@@ -176,6 +190,25 @@ class ResidentPipeline:
         self.ref_proc_d = reference_proc
         self.weight_d = weight
         self.staging = staging
+        self._stagings = {executor.device: staging}
+
+    def _staging_of(self, device):
+        if device not in self._stagings:
+            self._stagings[device] = HostStaging(device.type == "cuda")
+        return self._stagings[device]
+
+    @staticmethod
+    def _outputs(registered, flows, dtype, want_mask, keep_flows_host):
+        """Cast, statistics, valid flags (and masks, flows) of frames on one
+        device, on that device."""
+        mask = valid_mask(flows)
+        want = [cast_output(registered, dtype),
+                flow_statistics_tensor(flows), mask.flatten(1).all(dim=1)]
+        if want_mask:
+            want.append(mask.to(torch.uint8))
+        if keep_flows_host:
+            want.append(flows)
+        return want
 
     def _flows(self, raw, proc, w_init, progress_callback):
         T = raw.shape[0]
@@ -216,24 +249,31 @@ class ResidentPipeline:
             del fl
         current = w_init if use_w_init else torch.zeros_like(w_init)
 
-        registered, flows = self._flows(raw, proc, current, progress_callback)
-        reg_out = cast_output(registered, batch.dtype)
-        del registered
-        stats = flow_statistics_tensor(flows)
-        mask = valid_mask(flows)
-        valid = mask.flatten(1).all(dim=1)
+        uvw = current.expand((T,) + tuple(current.shape))
+        shards = self.executor.run_shards(
+            raw, proc, self.ref_raw_d, self.ref_proc_d, uvw, self.weight_d,
+            self.key, self.order, progress_callback)
+        # the flows needed here, in frame order on the run's device
+        lo = 0 if update_reference else T - min(20, T)
+        flows = [f[max(lo - a, 0):].to(dev) for a, b, _, f in shards
+                 if b > lo]
+        flows = flows[0] if len(flows) == 1 else torch.cat(flows)
         new_w_init = flows[-20:].mean(dim=0)
         if update_reference:
             self.ref_proc_d = updated_reference(proc, flows, self.ref_proc_d,
                                                 self.order,
                                                 self.executor.use_kernels)
-
-        want = [reg_out, stats, valid]
-        if want_mask:
-            want.append(mask.to(torch.uint8))
-        if keep_flows_host:
-            want.append(flows)
-        host = self.staging.download(want)
+        # each shard's outputs go down through its device's staging into
+        # its frames of the batch's host arrays
+        host = None
+        for a, b, r, f in shards:
+            want = self._outputs(r, f, batch.dtype, want_mask,
+                                 keep_flows_host)
+            if host is None:
+                host = [torch.empty((T,) + tuple(x.shape[1:]),
+                                    dtype=x.dtype).numpy() for x in want]
+            self._staging_of(f.device).download(want, [h[a:b] for h in host])
+        del shards, want
         reg, stats_h, valid_h = host[:3]
         return {
             "registered": host_cast(reg, batch.dtype),

@@ -10,7 +10,9 @@ one process) for child processes.
 
 Features report torch, its CUDA build, whether a card is visible and
 whether the CUDA kernels of ``csrc/`` are built; devices come from
-``torch.cuda`` (the CPU counts as one device when there is no card).
+``torch.cuda`` (the CPU counts as one device when there is no card), the
+process index and count from ``torch.distributed`` when its process group
+is initialised (``parallel/multihost.initialize``).
 """
 
 import contextvars
@@ -123,14 +125,18 @@ class RuntimeContext:
     def _detect_devices():
         import torch
 
+        dist = torch.distributed
+        pi, pc = ((dist.get_rank(), dist.get_world_size())
+                  if dist.is_available() and dist.is_initialized()
+                  else (0, 1))
         if torch.cuda.is_available():
             n = torch.cuda.device_count()
             return {"platform": "cuda", "n_devices": n,
                     "names": [torch.cuda.get_device_name(i)
                               for i in range(n)],
-                    "process_index": 0, "n_processes": 1}
+                    "process_index": pi, "n_processes": pc}
         return {"platform": "cpu", "n_devices": 1, "names": ["cpu"],
-                "process_index": 0, "n_processes": 1}
+                "process_index": pi, "n_processes": pc}
 
     # -- access -------------------------------------------------------------
 
@@ -165,7 +171,7 @@ class RuntimeContext:
     @classmethod
     def get_parallelization_executor(cls, name):
         """The executor class registered under ``name`` or its alias; None
-        for a name that is unknown or not ported yet."""
+        for an unknown name."""
         from flowreg3d_tpu_torch.parallel.executors import (_ALIASES,
                                                             _EXECUTORS)
 
@@ -193,10 +199,11 @@ class RuntimeContext:
 
 
 def get_optimal_parallelization(n_frames=None, volume_voxels=None):
-    """Heuristic executor choice: 'sequential' for single huge volumes
-    (bounded device memory), else 'batched'. Several devices would choose
-    'mesh', which is not ported yet (ROADMAP.md Queue 1 item 11): the port
-    runs one card."""
+    """Heuristic executor choice: 'mesh' on more than one device;
+    'sequential' for single huge volumes (bounded device memory); else
+    'batched'."""
+    if RuntimeContext.get("devices", {}).get("n_devices", 1) > 1:
+        return "mesh"
     if volume_voxels is not None and volume_voxels > 3e8:
         return "sequential"
     return "batched"

@@ -11,7 +11,9 @@ executor's CUDA-graph replay against the eager sequential executor, bit for
 bit, at a_smooth 1 and 0.5; a capture that meets a host sync raises instead
 of running eagerly; the resident pipeline on u16 input against the
 host-staged one, bit for bit; the download staging page-locked and
-reused.
+reused; one Z-sharded frame over two shards of the one card
+([cuda:0, cuda:0]), the slab kernels against their plain versions, bit for
+bit, with each slab kernel launched.
 """
 
 import numpy as np
@@ -115,3 +117,24 @@ def test_staging_pinned_and_reused(card):
         assert all(b.is_pinned() for b in staging.buffers)
         ptrs.append([b.data_ptr() for b in staging.buffers])
     assert ptrs[0] == ptrs[1]
+
+
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+def test_spatial_frame_kernels_equal_plain(card, a_smooth):
+    from flowreg3d_tpu_torch import _ext
+    from flowreg3d_tpu_torch.parallel.spatial_pyramid import (
+        get_displacement_sharded)
+
+    video, ref = _frames(T=1, C=1, shape=(24, 32, 36))
+    fp = dict(FLOW, a_smooth=a_smooth)
+    counters = _ext.launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    out = {uk: get_displacement_sharded(ref, video[0], devices=[card] * 2,
+                                        use_kernels=uk, **fp)
+           for uk in (True, False)}
+    launched = {k for k, f in counters.items() if f.launches > before[k]}
+    slab = ({"sor_halfsweep_const_f32"} if a_smooth == 1.0
+            else {"psi_field_f32", "sor_halfsweep_psi_f32"})
+    assert slab | {"map_coords_f32", "median5_f32"} <= launched
+    assert bool(out[True][1]) and bool(out[False][1])
+    assert torch.equal(out[True][0], out[False][0])

@@ -1,8 +1,9 @@
 """Port parity: the executors (``flowreg3d_tpu_torch.parallel``) against the
 JAX package's, and the pyramid's capture safety.
 
-- ``get_executor(None)`` gives the batched executor; the reference's
-  aliases resolve; 'mesh' and 'spatial' raise citing ROADMAP item 11.
+- ``get_executor(None)`` gives the batched executor without several cards
+  (over a device list when one is given); the reference's aliases
+  resolve, 'multiprocessing3d' to 'mesh'; 'mesh' and 'spatial' resolve.
 - ``BatchedExecutor3D`` equals ``SequentialExecutor3D`` bit for bit, for
   one and two channels, on batches of one and of four frames, and reports
   progress per frame.
@@ -56,9 +57,13 @@ def test_get_executor_auto_and_aliases():
     assert isinstance(tex.get_executor(device="cpu"), tex.BatchedExecutor3D)
     assert tex.get_executor("threading3d", device="cpu").name == "batched"
     assert tex.get_executor("sequential3d", device="cpu").name == "sequential"
-    for name in ("mesh", "multiprocessing3d", "spatial"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tex.get_executor(name, device="cpu")
+    for name, cls in (("mesh", tex.MeshExecutor3D),
+                      ("multiprocessing3d", tex.MeshExecutor3D),
+                      ("spatial", tex.SpatialExecutor3D)):
+        ex = tex.get_executor(name, device="cpu")
+        assert isinstance(ex, cls) and ex.devices == [torch.device("cpu")]
+    ex = tex.get_executor(device="cpu", devices=["cpu"] * 2)
+    assert ex.name == "batched" and ex.devices == [torch.device("cpu")] * 2
     with pytest.raises(ValueError, match="Unknown executor"):
         tex.get_executor("gpu9", device="cpu")
 

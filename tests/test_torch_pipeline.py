@@ -181,16 +181,18 @@ def test_symmetric_padding_matches_numpy(n):
 
 
 def test_unported_requests_raise(base_volume, tmp_path):
-    """What is still not ported raises and names its ROADMAP item: the mesh
-    executor and flow backends. Checkpointing, prefetch, the async writer
-    and file formats work: a MAT run through all three writes the in-memory
-    pipeline's frames."""
+    """What is still not ported raises and names its ROADMAP item: flow
+    backends. The mesh and spatial executors are built; checkpointing,
+    prefetch, the async writer and file formats work: a MAT run through all
+    three writes the in-memory pipeline's frames."""
     opts = options_from_jax(fast_options(a_smooth=0.5))
     with pytest.raises(ValueError):
         compensate_arr(np.empty((0, 2, 2, 2, 1)), base_volume, device="cpu")
-    for cfg, queue in ((RegistrationConfig(parallelization="mesh"),
-                        "item 11"),
-                       (RegistrationConfig(flow_backend="volraft"),
+    for name in ("mesh", "spatial"):
+        corr = BatchMotionCorrector(
+            opts, RegistrationConfig(parallelization=name), device="cpu")
+        assert corr.executor.name == name
+    for cfg, queue in ((RegistrationConfig(flow_backend="volraft"),
                         "item 13"),
                        (RegistrationConfig(get_displacement_func=len),
                         "item 13")):

@@ -4,7 +4,7 @@
 The five cases of tests/test_runtime.py run on the port: detection,
 scoped overrides, the executor lookup with the reference's aliases, the
 env snapshot round trip and the executor heuristic, which picks 'batched'
-(the port runs one device; 'mesh' is not ported yet). The two packages'
+on one device and 'mesh' on several, as JAX does. The two packages'
 snapshots use different env keys, so one cannot leak into the other; the
 flow-backend registries behave alike.
 """
@@ -18,7 +18,9 @@ from flowreg3d_tpu import runtime as jrt
 
 from flowreg3d_tpu_torch import runtime as trt
 from flowreg3d_tpu_torch.parallel.executors import (BatchedExecutor3D,
-                                                    SequentialExecutor3D)
+                                                    MeshExecutor3D,
+                                                    SequentialExecutor3D,
+                                                    SpatialExecutor3D)
 from flowreg3d_tpu_torch.runtime import (RuntimeContext,
                                          get_optimal_parallelization)
 
@@ -29,7 +31,7 @@ def test_init_and_detection():
     assert {"variational", "torch"} <= set(cfg["available_backends"])
     assert "variational" in want["available_backends"]
     assert set(cfg["available_parallelization"]) >= {"sequential", "batched"}
-    assert "mesh" not in cfg["available_parallelization"]
+    assert {"mesh", "spatial"} <= set(cfg["available_parallelization"])
     assert cfg["devices"]["n_devices"] >= 1
     assert cfg["devices"]["platform"] in ("cuda", "cpu")
     feats = cfg["features"]
@@ -55,8 +57,9 @@ def test_executor_registry_lookup():
     assert get("sequential3d") is SequentialExecutor3D
     assert get("batched") is BatchedExecutor3D
     assert get("threading3d") is BatchedExecutor3D
-    # not ported yet (ROADMAP.md Queue 1 item 11)
-    assert get("multiprocessing3d") is None
+    assert get("multiprocessing3d") is MeshExecutor3D
+    assert get("mesh") is MeshExecutor3D
+    assert get("spatial") is SpatialExecutor3D
     assert get("nope") is None
 
 
@@ -87,6 +90,8 @@ def test_optimal_parallelization():
     assert get_optimal_parallelization(volume_voxels=1e9) == "sequential"
     assert jrt.get_optimal_parallelization(volume_voxels=1e9) in (
         "mesh", "sequential")
+    with RuntimeContext.use(devices={"n_devices": 2}):
+        assert get_optimal_parallelization(volume_voxels=1e9) == "mesh"
 
 
 def test_flow_backend_registry_like_jax():
