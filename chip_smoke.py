@@ -86,7 +86,24 @@ Phases:
      on input scaled by one ulp itself moves further, within that spread),
      with launches, exchange copies, warm ms and peak memory; (d) the mesh
      pipeline (resident and host-staged) bit-identical to batched, and the
-     spatial pipeline against batched.
+     spatial pipeline against batched;
+ 11. synthetic motion and flow backends at 64x512x512, the port's own
+     modules: (a) the reference's example harness
+     (examples/motion_correct_3d_test.py): fix_seed(1), the low_disp
+     ground-truth flow (host numpy), the forward splat on the card (held to
+     the CPU splat on a crop at 1e-6), a 10-voxel crop, get_displacement at
+     the harness's FLOW_PARAMS with kernels and plain, the cubic warp, EPE
+     and the improvement ratio (kernel against plain: bit-identical or
+     within 0.5 dB / 2%; the ratio above 1); (b) compensate_arr_3D over T=2
+     frames of phase 6's recording with flow_backend='volraft-mock' and
+     with a VolRAFTBackend on a scripted Conv3d checkpoint (seeded weights,
+     a temporary directory, load_volraft), kernels against plain
+     bit-identical, volumes/s, the warp launches; each backend card vs CPU
+     on a 16x64x64 crop (1e-5 rigid, 1e-4 conv); (c) warp_volume_backward
+     kernel against plain, resize_batch of T=4 to half size against the CPU
+     (1e-5), compute_flow on a 512x512 plane at a_smooth 1 and 0.5 (a
+     0.4-voxel shift recovered to 0.15 over 80 iterations; float64 against
+     the CPU at 1e-9 over 20).
 Launch counts: every kernel wrapper counts its launches from the host (a
 capture is taken back out); a CUDA-graph replay launches its kernels
 without the wrappers, so each graph counts its replays, and the kernels
@@ -2406,6 +2423,339 @@ def phase_multi_gpu(card, dev, fixed):
     return timed, counts, replays, summary
 
 
+# the reference example harness's flow parameters
+# (examples/motion_correct_3d_test.py FLOW_PARAMS)
+HARNESS_PARAMS = dict(alpha=(0.25, 0.25, 0.25), iterations=100, a_data=0.45,
+                      a_smooth=1.0, levels=50, eta=0.8, update_lag=5,
+                      min_level=5, const_assumption="gc")
+HARNESS_BOUNDARY = 10
+BACKEND_T = 2
+SPLAT_CROP = (slice(24, 40), slice(192, 320), slice(192, 320))  # 16x128x128
+BACKEND_CROP = (slice(24, 40), slice(192, 256), slice(192, 256))  # 16x64x64
+PLANE = (512, 512)
+COMPARE_ITERATIONS = 20     # compute_flow card vs CPU, before divergence
+
+
+def harness_preprocess(f1, f2):
+    """The example harness's sigma-0.5 Gaussian, then both normalised by
+    f1's range, on the card (the port's Gaussian: scipy's 'reflect')."""
+    import torch
+
+    from flowreg3d_tpu_torch.ops.filters import gaussian_filter_3d
+
+    f1, f2 = (gaussian_filter_3d(f, (0.5, 0.5, 0.5)) for f in (f1, f2))
+    lo, hi = f1.min(), f1.max()
+    rng = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+    return (f1 - lo) / rng, (f2 - lo) / rng
+
+
+def phase_harness(card, dev, fixed):
+    """Phase 11a: the reference's example harness at full width: fix_seed,
+    the low_disp ground-truth flow (host numpy), the forward splat on the
+    card (held to the CPU splat on a crop), a 10-voxel crop, the flow at the
+    harness's parameters with kernels and plain, the cubic warp, EPE and
+    the improvement ratio. Returns (launches, the displaced volume, the
+    ground-truth flow)."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.core.pyramid import level_schedule
+    from flowreg3d_tpu_torch.core.solver import _blocks
+    from flowreg3d_tpu_torch.motion_generation import (
+        evaluate_flow_accuracy, get_low_disp_3d_generator, improvement_ratio,
+        warp_volume_splat3d)
+    from flowreg3d_tpu_torch.util import fix_seed
+
+    log(f"phase 11a: the example harness (motion_correct_3d_test) at {SHAPE}:"
+        " low_disp flow, splat on the card, flow at its FLOW_PARAMS")
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        fix_seed(1)
+        t = time.perf_counter()
+        flow_gt, invalid = get_low_disp_3d_generator()(
+            depth=SHAPE[0], height=SHAPE[1], width=SHAPE[2], rng=1)
+        gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        displaced = warp_volume_splat3d(fixed, flow_gt, device=dev)
+        splat_s = time.perf_counter() - t
+        check(displaced.shape == fixed.shape and displaced.dtype == np.float32
+              and np.isfinite(displaced).all(), "splat output")
+        crop_card = warp_volume_splat3d(fixed[SPLAT_CROP],
+                                        flow_gt[SPLAT_CROP], device=dev)
+        crop_cpu = warp_volume_splat3d(fixed[SPLAT_CROP], flow_gt[SPLAT_CROP],
+                                       device="cpu")
+        d_splat = float(np.abs(crop_card - crop_cpu).max())
+        log(f"  low_disp flow {gen_s:.2f} s on the host (max |flow| "
+            f"{np.abs(flow_gt).max(axis=(0, 1, 2)).tolist()}, invalid "
+            f"{invalid.mean():.4f}); splat on the card {splat_s:.2f} s "
+            f"(numpy in and out); card vs CPU splat on a 16x128x128 crop: "
+            f"max diff {d_splat:.3e} (<= 1e-6)")
+        check(d_splat <= 1e-6, f"splat card vs CPU {d_splat}")
+
+        b = HARNESS_BOUNDARY
+        sl = (slice(b, -b),) * 3
+        original_c, displaced_c, flow_gt_c = (np.ascontiguousarray(a[sl])
+                                              for a in (fixed, displaced,
+                                                        flow_gt))
+        shape = original_c.shape
+        orig_t, disp_t = (torch.from_numpy(a).to(dev)
+                          for a in (original_c, displaced_c))
+        f1, f2 = harness_preprocess(orig_t, disp_t)
+        plan, _, _ = level_schedule(shape, HARNESS_PARAMS["eta"],
+                                    HARNESS_PARAMS["levels"],
+                                    HARNESS_PARAMS["min_level"])
+        expected = {
+            "sor_iterations_f32": len(plan) * len(_blocks(
+                HARNESS_PARAMS["iterations"], HARNESS_PARAMS["update_lag"])),
+            "map_coords_f32": len(plan) + 1,
+            "median5_f32": sum(min(size) > 5 for _, size, _ in plan),
+        }
+        out = {}
+        for tag, uk in (("kernel", True), ("plain", False)):
+            reset_counts()
+            t = time.perf_counter()
+            flow = ft.get_displacement(f1, f2, device=dev, use_kernels=uk,
+                                       **HARNESS_PARAMS)
+            corrected = ft.imregister_wrapper(
+                disp_t, flow[..., 0], flow[..., 1], flow[..., 2], orig_t,
+                "cubic", device=dev, use_kernels=uk)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            launches = read_counts()
+            flow_np, corr_np = flow.cpu().numpy(), corrected.cpu().numpy()
+            check(flow_np.shape == shape + (3,) and np.isfinite(flow_np).all()
+                  and np.isfinite(corr_np).all(), f"{tag}: harness output")
+            eval_b = min(8, min(shape) // 4)
+            out[tag] = dict(
+                seconds=seconds, launches=launches, flow=flow_np,
+                corrected=corr_np,
+                epe=evaluate_flow_accuracy(flow_np, flow_gt_c,
+                                           boundary=eval_b),
+                ratio=improvement_ratio(original_c, displaced_c, corr_np),
+                psnr=psnr(original_c, corr_np))
+        k, p = out["kernel"], out["plain"]
+        same = bool(np.array_equal(k["flow"], p["flow"])
+                    and np.array_equal(k["corrected"], p["corrected"]))
+        log(f"  cropped {shape}, {len(plan)} levels; kernel run "
+            f"{k['seconds']:.2f} s, launches {k['launches']} (expected "
+            f"{expected}); plain run {p['seconds']:.2f} s; EPE kernel "
+            f"{k['epe']:.4f} px, plain {p['epe']:.4f} px; MAE improvement "
+            f"ratio kernel {k['ratio']:.4f}x, plain {p['ratio']:.4f}x; PSNR "
+            f"{k['psnr']:.3f} / {p['psnr']:.3f} dB; bit-identical {same}; "
+            f"card {card}")
+        for name, n in expected.items():
+            check(k["launches"][name] == n,
+                  f"harness {name}: {k['launches'][name]} launches, "
+                  f"expected {n}")
+        check(same or (abs(k["psnr"] - p["psnr"]) <= 0.5
+                       and abs(k["ratio"] - p["ratio"])
+                       <= 0.02 * p["ratio"]),
+              "harness: kernel and plain differ beyond 0.5 dB / 2%")
+        check(k["ratio"] > 1 and p["ratio"] > 1,
+              f"harness: no improvement ({k['ratio']}, {p['ratio']})")
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+    return k["launches"], displaced, flow_gt
+
+
+def scripted_conv(path, seed=0):
+    """A TorchScript Conv3d(2, 3, 3, padding=1) with seeded weights: a
+    stand-in checkpoint with volRAFT's contract (1,2,D,H,W) -> (1,3,D,H,W)."""
+    import torch
+
+    conv = torch.nn.Conv3d(2, 3, 3, padding=1)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        conv.weight.copy_(0.1 * torch.randn(conv.weight.shape, generator=gen))
+        conv.bias.copy_(0.1 * torch.randn(3, generator=gen))
+    torch.jit.script(conv).save(str(path))
+
+
+def phase_backends(card, dev, fixed):
+    """Phase 11b: compensate_arr_3D over T=2 frames of phase 6's recording
+    with the flow backends: flow_backend='volraft-mock' (the rigid
+    stand-in) and a VolRAFTBackend on a scripted Conv3d loaded through
+    load_volraft, each with kernels and plain (bit-identical); each
+    backend's card flow held to its CPU flow on a crop. Returns the kernel
+    runs' launches by path."""
+    import tempfile
+
+    import torch
+
+    from flowreg3d_tpu_torch.backends import (PatchRigidFlowBackend,
+                                              VolRAFTBackend, load_volraft)
+    from flowreg3d_tpu_torch.pipeline import (OFOptions, RegistrationConfig,
+                                              compensate_arr_3D)
+
+    frames = recording(fixed, BACKEND_T)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scripted_conv(Path(tmp) / "volraft.pt")
+        conv = load_volraft(checkpoint_dir=tmp, device=dev)
+        check(isinstance(conv, VolRAFTBackend), "load_volraft: no checkpoint")
+        cases = (("backend_mock", dict(flow_backend="volraft-mock"), 1e-5),
+                 ("backend_volraft", dict(get_displacement_func=conv), 1e-4))
+        log(f"phase 11b: flow backends in the pipeline, T={BACKEND_T} frames "
+            f"of {SHAPE}: {[c[0] for c in cases]}")
+        for name, cfg, tol in cases:
+            out = {}
+            for tag, uk in (("kernel", True), ("plain", False),
+                            ("warm", True)):
+                reset_counts()
+                t = time.perf_counter()
+                reg, flows = compensate_arr_3D(
+                    frames, fixed, OFOptions(), device=dev,
+                    config=RegistrationConfig(use_kernels=uk, **cfg))
+                torch.cuda.synchronize()
+                out[tag] = dict(seconds=time.perf_counter() - t, reg=reg,
+                                flows=flows, launches=read_counts())
+            k, p = out["kernel"], out["plain"]
+            check(k["reg"].shape == frames.shape
+                  and k["flows"].shape == frames.shape + (3,)
+                  and np.isfinite(k["reg"]).all()
+                  and np.isfinite(k["flows"]).all(), f"{name}: output")
+            same = bool(np.array_equal(k["reg"], p["reg"])
+                        and np.array_equal(k["flows"], p["flows"]))
+            # per frame: the initial-w pass's warp, the batch's warp and,
+            # w_init being nonzero, the harness's order-1 pre-warp
+            expected = 3 * BACKEND_T
+            counts[name] = k["launches"]
+            q = frame_quality(frames, fixed, k["reg"], k["flows"])
+            log(f"  {name}: kernel run {k['seconds']:.2f} s, plain "
+                f"{p['seconds']:.2f} s, warm {out['warm']['seconds']:.2f} s "
+                f"({BACKEND_T / out['warm']['seconds']:.4f} volumes/s); "
+                f"launches {k['launches']} (map_coords_f32 expected "
+                f"{expected}); registered and flows bit-identical kernel vs "
+                f"plain {same}; quality {q}; card {card}")
+            check(same, f"{name}: kernel and plain pipelines differ")
+            check(k["launches"]["map_coords_f32"] == expected,
+                  f"{name}: map_coords_f32 launched "
+                  f"{k['launches']['map_coords_f32']} times, expected "
+                  f"{expected}")
+            check(out["warm"]["launches"] == k["launches"],
+                  f"{name}: the warm run launched {out['warm']['launches']}")
+            # the backend alone, card against CPU, on a crop
+            fc, mc = fixed[BACKEND_CROP], frames[0][BACKEND_CROP]
+            uvw = np.full(fc.shape + (3,), 0.3, np.float32)
+            if name == "backend_mock":
+                card_flow = PatchRigidFlowBackend(device=dev)(fc, mc)
+                cpu_flow = PatchRigidFlowBackend(device="cpu")(fc, mc)
+            else:
+                card_flow = conv(fc, mc, uvw=uvw)
+                cpu_flow = VolRAFTBackend(Path(tmp) / "volraft.pt",
+                                          device="cpu")(fc, mc, uvw=uvw)
+            d = float(np.abs(card_flow - cpu_flow).max())
+            log(f"  {name} alone on a 16x64x64 crop: card vs CPU flow max "
+                f"diff {d:.3e} (<= {tol:g})")
+            check(d <= tol, f"{name}: card vs CPU flow {d}")
+        del conv
+    return counts
+
+
+def plane_problem(shift_yx, dtype):
+    """The 2D solver's test problem (tests/core/test_solver2d.py) on a
+    512x512 plane: a smoothed random image and its shifted copy."""
+    from scipy.ndimage import gaussian_filter, shift as ndshift
+
+    rng = np.random.default_rng(3)
+    f1 = gaussian_filter(rng.random(PLANE), 2.5)
+    f2 = ndshift(f1, shift_yx, order=1, mode="nearest")
+    fx = 0.5 * (np.gradient(f1, axis=1) + np.gradient(f2, axis=1))
+    fy = 0.5 * (np.gradient(f1, axis=0) + np.gradient(f2, axis=0))
+    ft = f2 - f1
+    J = [np.pad(j, 1, mode="edge")[..., None].astype(dtype)
+         for j in (fx * fx, fy * fy, ft * ft, fx * fy, fx * ft, fy * ft)]
+    m, n = PLANE[0] + 2, PLANE[1] + 2
+    return (J, np.ones((m, n, 1), dtype), np.zeros((m, n), dtype),
+            np.zeros((m, n), dtype))
+
+
+def phase_extras(card, dev, fixed, displaced, flow_gt):
+    """Phase 11c: warp_volume_backward of the splatted volume by its
+    ground-truth flow (kernel against plain, bit-equal; closer to the fixed
+    volume than the splatted one),
+    resize_batch of a T=4 batch to half size (against the CPU), and the 2D
+    solver compute_flow on a 512x512 plane (shift recovery; float64 against
+    the CPU). Returns the backward warp's launches."""
+    import torch
+
+    from flowreg3d_tpu_torch.core import compute_flow
+    from flowreg3d_tpu_torch.motion_generation import warp_volume_backward
+    from flowreg3d_tpu_torch.ops import resize_batch
+
+    log("phase 11c: warp_volume_backward, resize_batch, compute_flow")
+    reset_counts()
+    back_k = warp_volume_backward(displaced, flow_gt, device=dev)
+    launches = read_counts()
+    back_p = warp_volume_backward(displaced, flow_gt, device=dev,
+                                  use_kernels=False)
+    same = bool(np.array_equal(back_k, back_p))
+    ratio = mse(displaced, fixed) / mse(back_k, fixed)
+    log(f"  warp_volume_backward (order 1) kernel vs plain bit-identical "
+        f"{same}; launches {launches}; MSE to the fixed volume, splatted / "
+        f"warped back {ratio:.3f}x")
+    check(same and launches["map_coords_f32"] == 1,
+          "warp_volume_backward: kernel vs plain or its launch")
+    check(ratio > 1, f"warp_volume_backward: no improvement {ratio}")
+
+    batch = recording(fixed, 4)[..., None]
+    half = tuple(n // 2 for n in SHAPE)
+    batch_t = torch.from_numpy(batch).to(dev)
+    out = resize_batch(batch_t, half, device=dev)
+    ms = cuda_ms(lambda: resize_batch(batch_t, half, device=dev), n=5, warm=1)
+    cpu = resize_batch(batch[:1], half, device="cpu")
+    d = float((out[:1].cpu() - cpu).abs().max())
+    log(f"  resize_batch {tuple(batch.shape)} -> {tuple(out.shape)}: "
+        f"{ms:.3f} ms on the card; frame 0 against the CPU max diff "
+        f"{d:.3e} (<= 1e-5); card {card}")
+    check(tuple(out.shape) == (4,) + half + (1,) and d <= 1e-5,
+          f"resize_batch: shape {tuple(out.shape)} or diff {d}")
+    del batch_t, out
+
+    for a_smooth, a_data, shift in ((1.0, 1.0, (0.0, 0.4)),
+                                    (0.5, 0.45, (0.4, 0.0))):
+        kw = dict(alpha=(0.02, 0.02), iterations=80, update_lag=5,
+                  a_data=a_data, a_smooth=a_smooth)
+        J, w, u, v = plane_problem(shift, np.float32)
+        du, dv = compute_flow(J, w, u, v, device=dev, **kw)
+        ms = cuda_ms(lambda: compute_flow(J, w, u, v, device=dev, **kw),
+                     n=3, warm=1)
+        along, across = ((du, dv) if shift[1] else (dv, du))
+        med = (float(along[8:-8, 8:-8].median()),
+               float(across[8:-8, 8:-8].median()))
+        wild = int((du.abs() > 5).sum() + (dv.abs() > 5).sum())
+        # float64 over 20 iterations: at a_smooth 0.5 the solve (JAX's
+        # too) diverges locally after ~35 on this plane (|flow| ~2e5 on
+        # ~3000 pixels at 80), where rounding then moves it by ~100
+        J, w, u, v = plane_problem(shift, np.float64)
+        kw64 = dict(kw, iterations=COMPARE_ITERATIONS)
+        card64 = compute_flow(J, w, u, v, device=dev, **kw64)
+        cpu64 = compute_flow(J, w, u, v, device="cpu", **kw64)
+        d = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(card64, cpu64))
+        log(f"  compute_flow {PLANE} a_smooth {a_smooth}: {ms:.2f} ms "
+            f"(float32, 80 iterations); median flow along / across the "
+            f"0.4 shift {med[0]:.4f} / {med[1]:.4f}; {wild} flow values "
+            f"above 5; float64 card vs CPU over {COMPARE_ITERATIONS} "
+            f"iterations max diff {d:.3e} (<= 1e-9); card {card}")
+        check(abs(med[0] - 0.4) < 0.15 and abs(med[1]) < 0.15,
+              f"compute_flow a_smooth {a_smooth}: shift not recovered {med}")
+        check(d <= 1e-9, f"compute_flow float64 card vs CPU {d}")
+    return launches
+
+
+def phase_motion_and_backends(card, dev, fixed):
+    """Phase 11: synthetic motion and the flow backends at full width (the
+    port's own modules). Returns launches by path."""
+    counts = {}
+    counts["harness"], displaced, flow_gt = phase_harness(card, dev, fixed)
+    counts.update(phase_backends(card, dev, fixed))
+    counts["warp_backward"] = phase_extras(card, dev, fixed, displaced,
+                                           flow_gt)
+    return counts
+
+
 def phase_direct_timing(card, fixed_t, moving_t, n=3):
     import torch
 
@@ -2647,9 +2997,10 @@ def main():
     del t24
     slab_rows, multi_counts, multi_replays, multi = phase_multi_gpu(
         card, dev, fixed)
-    del fixed
     counts.update(multi_counts)
     replays.update(multi_replays)
+    counts.update(phase_motion_and_backends(card, dev, fixed))
+    del fixed
 
     kernels = []
     for row in rows:

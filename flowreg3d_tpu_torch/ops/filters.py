@@ -10,10 +10,13 @@ Counterpart of ``flowreg3d_tpu/ops/filters.py``:
   ``scipy.ndimage.gaussian_filter1d`` (truncate 4.0), boundary numpy
   'symmetric' (the edge sample repeated, scipy's 'reflect'). The temporal
   axis is filtered within the batch;
-- ``median_filter_5x5x5``: the exact 5^3 median, plain PyTorch.
+- ``median_filter_5x5x5``: the exact 5^3 median, plain PyTorch;
+- ``StreamingTemporalGaussian`` / ``gaussian_filter_1d_half_kernel``: a
+  causal half-Gaussian over a stream of frames, host numpy float64 (the
+  JAX package's code and contract: no pipeline path calls them).
 
-Everything runs in the input's dtype on its device; the pipeline feeds
-float32. ``StreamingTemporalGaussian`` is not ported yet.
+Everything else runs in the input's dtype on its device; the pipeline
+feeds float32.
 """
 
 from functools import lru_cache
@@ -115,3 +118,50 @@ def median_filter_5x5x5(x):
     """Exact 5x5x5 median of a (Z,Y,X) tensor, boundary 'mirror'
     (scipy.ndimage.median_filter(size=5, mode='mirror')), plain PyTorch."""
     return median5_plain(mirror_pad2(x[None]))[0]
+
+
+class StreamingTemporalGaussian:
+    """Causal (half-kernel) temporal Gaussian over a streamed batch axis.
+
+    A deque of the last ``radius+1`` frames convolved with the half
+    Gaussian (current + past taps only, renormalized), so batch boundaries
+    introduce no artifacts. Host numpy float64, as in the JAX package.
+    """
+
+    def __init__(self, sigma, truncate=4.0):
+        from collections import deque
+
+        self.sigma = float(sigma)
+        if self.sigma <= 0:
+            self.radius = 0
+            self.kernel = np.ones(1, np.float64)
+        else:
+            self.radius = int(truncate * self.sigma + 0.5)
+            x = np.arange(0, self.radius + 1, dtype=np.float64)
+            k = np.exp(-0.5 * (x / self.sigma) ** 2)
+            self.kernel = k / k.sum()  # taps: [now, -1, -2, ...]
+        self._buffer = deque(maxlen=self.radius + 1)
+
+    def reset(self):
+        self._buffer.clear()
+
+    def __call__(self, frame):
+        """Filtered frame given the stream history (adds ``frame`` first)."""
+        frame = np.asarray(frame, np.float64)
+        self._buffer.appendleft(frame)
+        taps = self.kernel[: len(self._buffer)]
+        taps = taps / taps.sum()
+        out = np.zeros_like(frame)
+        for w, f in zip(taps, self._buffer):
+            out += w * f
+        return out
+
+    def filter_batch(self, frames):
+        """Apply to a (T, ...) batch, continuing the stream state."""
+        return np.stack([self(frames[t]) for t in range(frames.shape[0])])
+
+
+def gaussian_filter_1d_half_kernel(frames, sigma, truncate=4.0, state=None):
+    """Functional wrapper: returns (filtered (T,...), state) for streaming."""
+    state = state or StreamingTemporalGaussian(sigma, truncate)
+    return state.filter_batch(np.asarray(frames)), state

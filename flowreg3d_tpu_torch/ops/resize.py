@@ -3,13 +3,18 @@
 Counterpart of ``flowreg3d_tpu/ops/resize.py``. The per-axis tap tables are
 built on the host in numpy (the same code as the JAX package) and scattered
 into a dense (out_len, in_len) matrix per axis; a resize is three fp32
-matrix products, x then y then z.
+matrix products, x then y then z. ``resize_batch`` resizes a (T,Z,Y,X,C)
+batch in one set of products (the frames folded into the channels) and
+``imresize2d_gauss_cubic`` is the 2-D wrapper; both take ``device=None``,
+meaning 'cuda'.
 """
 
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from flowreg3d_tpu_torch._device import resolve_device
 
 # Keys cubic parameter (MATLAB imresize kernel).
 _A = -0.75
@@ -117,6 +122,29 @@ def resize_volume(vol, out_size, sigma_coeff: float = 0.6,
     return x[..., 0] if squeeze else x
 
 
+def _upload(x, dev):
+    """A tensor on ``dev`` in its own dtype (numpy or tensor in)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def resize_batch(batch, out_size, sigma_coeff: float = 0.6,
+                 per_axis: bool = False, dtype=torch.float32, device=None):
+    """Resize a (T,Z,Y,X,C) or (T,Z,Y,X) batch along its spatial axes on
+    ``device`` (None means 'cuda'); returns a tensor in ``dtype``."""
+    x = _upload(batch, resolve_device(device))
+    squeeze = x.dim() == 4
+    if squeeze:
+        x = x[..., None]
+    T, Z, Y, X, C = x.shape
+    x = x.permute(1, 2, 3, 0, 4).reshape(Z, Y, X, T * C)
+    out = resize_volume(x, out_size, sigma_coeff, per_axis, dtype)
+    od, oh, ow = out.shape[:3]
+    out = out.reshape(od, oh, ow, T, C).permute(3, 0, 1, 2, 4).contiguous()
+    return out[..., 0] if squeeze else out
+
+
 def imresize_fused_gauss_cubic3D(img, size, sigma_coeff: float = 0.6,
                                  per_axis: bool = False):
     """Resize a 3D or 4D channels-last tensor; integer types keep their
@@ -126,3 +154,14 @@ def imresize_fused_gauss_cubic3D(img, size, sigma_coeff: float = 0.6,
         return out.to(img.dtype)
     info = torch.iinfo(img.dtype)
     return torch.clamp(torch.round(out), info.min, info.max).to(img.dtype)
+
+
+def imresize2d_gauss_cubic(img2d, out_hw, sigma_coeff: float = 0.6,
+                           device=None):
+    """Resize a (H,W) or (H,W,C) image to ``out_hw`` on ``device`` (None
+    means 'cuda'), per-axis sigmas; integer types by round and clip."""
+    img = _upload(img2d, resolve_device(device))
+    out = imresize_fused_gauss_cubic3D(
+        img[None], (1, int(out_hw[0]), int(out_hw[1])),
+        sigma_coeff=sigma_coeff, per_axis=True)
+    return out[0]

@@ -33,8 +33,11 @@ cross-correlation prealignment) and four executors:
   those frames.
 
 Per frame: the flow from the port's pyramid (``core/pyramid.build_pyramid``),
-then the warp of the raw frame onto the reference. Inputs are uploaded once
-and every result stays on the executor's device; the caller downloads.
+then the warp of the raw frame onto the reference. A flow backend
+(``process_batch(..., get_displacement_func=...)``) replaces the pyramid in
+every executor with the base class's eager per-frame loop, as in JAX.
+Inputs are uploaded once and every result stays on the executor's device;
+the caller downloads.
 ``use_kernels=True`` runs the CUDA kernels on CUDA tensors (the JAX
 package's ``use_pallas``); ``use_kernels=False`` runs their plain PyTorch
 versions. A failed capture or replay raises: nothing falls back to the eager
@@ -300,11 +303,14 @@ class BaseExecutor3D:
 
     def process_batch(self, batch, batch_proc, reference_raw, reference_proc,
                       w_init, interpolation_method="cubic",
-                      progress_callback=None, flow_params=None):
+                      progress_callback=None, flow_params=None,
+                      get_displacement_func=None, imregister_func=None):
         """Register a batch: returns (registered (T,Z,Y,X,C), flows
         (T,Z,Y,X,3)), float tensors on the executor's device. With
         ``flow_params['cc_initialization']`` each frame is first prealigned
-        rigidly (``prealign``) and the residual flow is solved from zero."""
+        rigidly (``prealign``) and the residual flow is solved from zero. A
+        ``get_displacement_func`` replaces the pyramid: the batch goes
+        through ``_run_custom_backend``'s per-frame loop."""
         flow_params = dict(flow_params or {})
         if interpolation_method not in _ORDERS:
             raise ValueError(f"Unsupported interpolation method "
@@ -315,10 +321,15 @@ class BaseExecutor3D:
                                                                batch_proc))
         ref_raw, ref_proc = (self._on_device(r, 4) for r in (reference_raw,
                                                              reference_proc))
-        weight = self._weight_volume(flow_params, ref_proc)
-        key = _config_key(ref_proc, flow_params, self.dtype, self.use_kernels)
         w_init = torch.as_tensor(w_init).to(device=self.device,
                                             dtype=self.dtype)
+        if get_displacement_func is not None:
+            return self._run_custom_backend(
+                batch, batch_proc, ref_raw, ref_proc, w_init,
+                get_displacement_func, imregister_func, interpolation_method,
+                progress_callback, flow_params)
+        weight = self._weight_volume(flow_params, ref_proc)
+        key = _config_key(ref_proc, flow_params, self.dtype, self.use_kernels)
         T = batch.shape[0]
         if flow_params.get("cc_initialization", False):
             aligned, combined = self._prealign_frames(batch_proc, ref_proc,
@@ -334,6 +345,63 @@ class BaseExecutor3D:
     def _run(self, batch, batch_proc, ref_raw, ref_proc, uvw, weight, key,
              order, progress_callback):
         raise NotImplementedError
+
+    # solver-facing kwargs only; pipeline-internal keys stay host-side
+    _PIPELINE_KEYS = ("cc_initialization", "cc_hw", "cc_up", "weight",
+                      "update_initialization_w")
+
+    def _run_custom_backend(self, batch, batch_proc, ref_raw, ref_proc,
+                            w_init, get_displacement_func, imregister_func,
+                            interp, progress_callback, flow_params):
+        """The flow-backend path, a per-frame loop in every executor (JAX
+        ``parallel/executors.py:_run_custom_backend``): the backend gets
+        host numpy float32 ``ref_proc``, ``frame_proc`` and ``uvw`` and the
+        solver-facing options; its flow is uploaded and the raw frame
+        warped onto the reference (the port's warp on the executor's
+        device, or ``imregister_func`` called on host numpy arrays). Under
+        cc prealignment the backend solves the residual of ``prealign``
+        from zero. Returns float tensors like ``process_batch``; the
+        caller casts to the input's dtype."""
+        of_params = {k: v for k, v in flow_params.items()
+                     if k not in self._PIPELINE_KEYS}
+        use_cc = bool(flow_params.get("cc_initialization", False))
+        if use_cc:
+            cc_hw, cc_up, wvec = self._cc_params(flow_params)
+            wv = (None if wvec is None
+                  else torch.from_numpy(wvec).to(self.device))
+
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        ref_proc_h = host(ref_proc)
+        # the residual after prealignment is solved from zero
+        uvw_h = np.zeros_like(host(w_init)) if use_cc else host(w_init)
+        regs, flows = [], []
+        for t in range(batch.shape[0]):
+            frame_proc = batch_proc[t]
+            if use_cc:
+                frame_proc, base_flow = prealign(
+                    batch_proc[t], ref_proc, w_init, wv, cc_hw, cc_up,
+                    self.use_kernels)
+            flow = self._on_device(np.asarray(get_displacement_func(
+                ref_proc_h, host(frame_proc), uvw=uvw_h, **of_params),
+                np.float32), 4)
+            if use_cc:
+                flow = flow + base_flow
+            if imregister_func is None:
+                reg = warp(batch[t], flow[..., 0], flow[..., 1],
+                           flow[..., 2], ref_raw, _ORDERS[interp],
+                           self.use_kernels)
+            else:
+                f = host(flow)
+                reg = self._on_device(np.asarray(imregister_func(
+                    host(batch[t]), f[..., 0], f[..., 1], f[..., 2],
+                    host(ref_raw), interpolation_method=interp)), 4)
+            regs.append(reg)
+            flows.append(flow)
+            if progress_callback:
+                progress_callback(1)
+        return torch.stack(regs), torch.stack(flows)
 
 
 class SequentialExecutor3D(BaseExecutor3D):

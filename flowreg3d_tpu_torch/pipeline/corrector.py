@@ -32,8 +32,10 @@ batch while the next one downloads. ``used_device_resident`` reports which
 engine ran. ``device=None`` means 'cuda'. The reader's thread decodes with
 numpy only; every upload and download stays on the calling thread.
 
-Not ported yet, and raising where asked for (ROADMAP.md Queue 1 item 13):
-flow backends (``get_displacement_func``, ``flow_backend``).
+A flow backend (``get_displacement_func``, or a registered
+``flow_backend`` name instantiated once on the run's device) replaces the
+variational solver on the host-staged path: the executor calls it per
+frame on host numpy arrays and warps the raw frame on the device.
 """
 
 import os
@@ -79,6 +81,10 @@ class RegistrationConfig:
     reader's thread decodes ahead (0: none). ``async_write``: a writer
     thread encodes file output. ``checkpoint``: write ``checkpoint.npz``
     after every batch of a file run, and resume from it.
+    ``get_displacement_func``: a callable with the ``get_displacement``
+    protocol replacing the variational solver; ``flow_backend``: the name
+    of a registered backend (``runtime.register_flow_backend``; 'volraft'
+    and 'volraft-mock' are built in) to instantiate for it.
     """
 
     verbose: bool = False
@@ -94,13 +100,6 @@ class RegistrationConfig:
     flow_backend: Optional[str] = None
 
 
-# config field -> (the values that ask for nothing, where it is queued)
-_NOT_PORTED = {
-    "get_displacement_func": ((None,), "Queue 1 item 13"),
-    "flow_backend": ((None, "", "variational"), "Queue 1 item 13"),
-}
-
-
 class BatchMotionCorrector:
     """Streaming batch registration pipeline."""
 
@@ -108,12 +107,6 @@ class BatchMotionCorrector:
                  config: Optional[RegistrationConfig] = None, device=None):
         self.options = options
         self.config = config or RegistrationConfig()
-        for name, (off, queue) in _NOT_PORTED.items():
-            if getattr(self.config, name) not in off:
-                raise NotImplementedError(
-                    f"RegistrationConfig.{name}={getattr(self.config, name)!r}"
-                    " is not ported to flowreg3d_tpu_torch yet (ROADMAP.md "
-                    f"{queue})")
         self.device = resolve_device(device)
 
         self.mean_disp: List[float] = []
@@ -266,7 +259,25 @@ class BatchMotionCorrector:
         return self.executor.process_batch(
             batch, batch_proc, self._reference_raw_d, self.reference_proc,
             w_init, self.options.interpolation_method.value, cb,
-            self._flow_params())
+            self._flow_params(),
+            get_displacement_func=self._resolve_flow_backend())
+
+    def _resolve_flow_backend(self):
+        """The callable replacing the variational solver, or None. A named
+        backend is instantiated once, on the run's device, and kept on the
+        config, as in the JAX package."""
+        if self.config.get_displacement_func is not None:
+            return self.config.get_displacement_func
+        if self.config.flow_backend not in (None, "", "variational"):
+            import flowreg3d_tpu_torch.backends  # noqa: F401  (built-ins)
+            from flowreg3d_tpu_torch.runtime import get_flow_backend
+
+            fn = get_flow_backend(self.config.flow_backend,
+                                  device=self.device,
+                                  use_kernels=self.config.use_kernels)
+            self.config.get_displacement_func = fn  # instantiate once
+            return fn
+        return None
 
     def _compute_initial_w(self, batch, batch_proc):
         Z, Y, X = self.reference_proc.shape[:3]

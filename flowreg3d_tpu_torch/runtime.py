@@ -16,6 +16,7 @@ is initialised (``parallel/multihost.initialize``).
 """
 
 import contextvars
+import inspect
 import json
 import os
 from contextlib import contextmanager
@@ -26,9 +27,10 @@ _overrides = contextvars.ContextVar("flowreg3d_tpu_torch_overrides",
 
 # -- flow-backend registry ---------------------------------------------------
 # A backend is a factory returning a callable with the get_displacement
-# protocol ``fn(fixed, moving, uvw=..., **params) -> (Z,Y,X,3)``. The
-# pipeline does not call backends yet (ROADMAP.md Queue 1 item 13): asking
-# for one raises in ``BatchMotionCorrector``.
+# protocol ``fn(fixed, moving, uvw=..., **params) -> (Z,Y,X,3)`` that
+# replaces the variational solver inside the executors
+# (``RegistrationConfig(flow_backend=name)``; ``backends/volraft.py``
+# registers 'volraft' and 'volraft-mock' when imported).
 _FLOW_BACKENDS = {}
 
 
@@ -37,15 +39,23 @@ def register_flow_backend(name, factory):
     _FLOW_BACKENDS[str(name)] = factory
 
 
-def get_flow_backend(name):
-    """Instantiate a registered backend; raises KeyError with choices."""
+def get_flow_backend(name, **kwargs):
+    """Instantiate a registered backend; raises KeyError with choices.
+    ``kwargs`` (the pipeline passes ``device`` and ``use_kernels``) go to
+    the factory where its signature takes them."""
     try:
         factory = _FLOW_BACKENDS[str(name)]
     except KeyError:
         raise KeyError(
             f"Unknown flow backend '{name}'. Registered: "
             f"{sorted(_FLOW_BACKENDS)}") from None
-    return factory()
+    try:
+        params = inspect.signature(factory).parameters
+    except (TypeError, ValueError):
+        params = {}
+    if not any(p.kind is p.VAR_KEYWORD for p in params.values()):
+        kwargs = {k: v for k, v in kwargs.items() if k in params}
+    return factory(**kwargs)
 
 
 def list_flow_backends():

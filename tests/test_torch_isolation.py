@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX, the JAX package nor
-pydantic, nor h5py until an HDF5 or MAT v7.3 file is asked for (its io and
-cli modules included), and its entry points (the pipeline's included) run
-on CUDA unless the caller asks for the CPU."""
+pydantic, nor h5py until an HDF5 or MAT v7.3 file is asked for (its io,
+cli, motion_generation, backends and util modules and the lazy top-level
+pipeline names included), and its entry points (the pipeline's included)
+run on CUDA unless the caller asks for the CPU."""
 
 import re
 import subprocess
@@ -44,6 +45,15 @@ from flowreg3d_tpu_torch.io import (_tiff_format, tiff3d, ds, hdf5, mat,
                                     multifile, scanimage, prefetch,
                                     async_writer, factory)
 from flowreg3d_tpu_torch.pipeline import compensate_recording
+import flowreg3d_tpu_torch.core.solver2d
+from flowreg3d_tpu_torch import backends, core, motion_generation, ops, util
+assert ft.OFOptions is not None and ft.compensate_arr_3D is not None
+assert ft.compensate_recording is compensate_recording
+flow_gt, _ = motion_generation.get_test_3d_generator()(8, 20, 20, rng=0)
+moved = motion_generation.warp_volume_splat3d(fixed, flow_gt, device="cpu")
+flow = backends.PatchRigidFlowBackend(device="cpu")(fixed, moved)
+assert flow.shape == (8, 20, 20, 3)
+util.fix_seed(0, deterministic=False)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flowreg3d_tpu",
                                     "pydantic", "h5py"))

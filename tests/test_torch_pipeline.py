@@ -180,11 +180,12 @@ def test_symmetric_padding_matches_numpy(n):
         np.testing.assert_array_equal(x[idx], np.pad(x, r, mode="symmetric"))
 
 
-def test_unported_requests_raise(base_volume, tmp_path):
-    """What is still not ported raises and names its ROADMAP item: flow
-    backends. The mesh and spatial executors are built; checkpointing,
+def test_executor_checkpoint_and_writer_requests(base_volume, tmp_path):
+    """Every RegistrationConfig request is served: the mesh and spatial
+    executors are built, an unknown executor raises; checkpointing,
     prefetch, the async writer and file formats work: a MAT run through all
-    three writes the in-memory pipeline's frames."""
+    three writes the in-memory pipeline's frames. (Flow backends:
+    tests/test_torch_backends.py.)"""
     opts = options_from_jax(fast_options(a_smooth=0.5))
     with pytest.raises(ValueError):
         compensate_arr(np.empty((0, 2, 2, 2, 1)), base_volume, device="cpu")
@@ -192,12 +193,6 @@ def test_unported_requests_raise(base_volume, tmp_path):
         corr = BatchMotionCorrector(
             opts, RegistrationConfig(parallelization=name), device="cpu")
         assert corr.executor.name == name
-    for cfg, queue in ((RegistrationConfig(flow_backend="volraft"),
-                        "item 13"),
-                       (RegistrationConfig(get_displacement_func=len),
-                        "item 13")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {queue}"):
-            BatchMotionCorrector(opts, cfg, device="cpu")
     with pytest.raises(ValueError, match="Unknown executor"):
         BatchMotionCorrector(opts, RegistrationConfig(parallelization="gpu9"),
                              device="cpu")
