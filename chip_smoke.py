@@ -26,8 +26,11 @@ Phases:
      shape, a ragged shape and a tied input, and timed at every level of a
      direct-API step; 2b. the flow-driven-diffusivity kernels (psi field,
      psi and constant-weight half-sweeps) at a mid level and at the full
-     514^2 plane, the psi field also on a ragged grid in both forms and
-     timed at every level;
+     514^2 plane, the psi field also on a ragged grid in both forms; the
+     tick block sor_iterations_psi_f32 (one cooperative launch, in both of
+     its modes) at four shapes for 1, 2, 9 and 10 iterations, eagerly and
+     replayed in a CUDA graph, and timed at every level of a direct-API
+     step against the three-kernel loop it replaced;
   3. the canonical motion-correction step (64x512x512, bench.py's pair and
      flow parameters) through get_displacement + imregister_wrapper, with
      the kernels' launch counts, against the same step on the plain path;
@@ -163,6 +166,7 @@ KERNEL_SYMBOLS = {
     "psi_field_f32": r"\bpsi_field_kernel\b",
     "sor_halfsweep_psi_f32": r"\bhalfsweep_kernel<true>",
     "sor_halfsweep_const_f32": r"\bhalfsweep_kernel<false>",
+    "sor_iterations_psi_f32": r"\bpsi_tick_(block|phases)_kernel\b",
 }
 
 KERNEL_TOL = 2e-5                  # tests/core/test_solver_pallas.py:62,157
@@ -767,7 +771,8 @@ def direct_defaults():
 
 def phase_psi_kernels(card, dev):
     """The flow-driven-diffusivity kernels against their plain versions at a
-    mid level and at the full 514^2 plane, and their timings."""
+    mid level and at the full 514^2 plane, and their timings; then the tick
+    block sor_iterations_psi_f32 (phase_psi_tick)."""
     import torch
 
     from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
@@ -856,38 +861,32 @@ def phase_psi_kernels(card, dev):
                 f"{card}")
         del duvw, base, sj, psi_k, psi_p, a, b
 
-    phase_psi_field_shapes(card, dev, plan, d)
-    # One psi_field kernel serves every plane, so rows 6 and 7 both carry
-    # its launches counted over the direct-API step.
-    rows = [
-        dict(out[("psi_field_f32", mid)], path="direct",
+    phase_psi_field_ragged(dev)
+    tick = phase_psi_tick(card, dev, plan, d)
+    # The whole-volume psi path is one sor_iterations_psi_f32 launch a tick
+    # block (rows 6, 7); psi_field_f32 and sor_halfsweep_psi_f32 run on the
+    # Z-sharded path only.
+    rows = tick + [
+        dict(out[("psi_field_f32", 0)], path="spatial",
              replaces="flowreg3d_tpu/core/solver_pallas.py:247"),
-        dict(out[("psi_field_f32", 0)], path="direct",
-             replaces="flowreg3d_tpu/core/solver_pallas.py:435"),
         dict(out[("sor_halfsweep_const_f32", 0)], path="spatial_defaults",
              replaces="flowreg3d_tpu/core/solver_pallas.py:33"),
-        dict(out[("sor_halfsweep_psi_f32", 0)], path="direct",
+        dict(out[("sor_halfsweep_psi_f32", 0)], path="spatial",
              replaces="flowreg3d_tpu/core/solver_pallas.py:148"),
     ]
     return rows
 
 
-def phase_psi_field_shapes(card, dev, plan, d):
+def phase_psi_field_ragged(dev):
     """psi_field_f32 bit-equal to its plain version on a ragged grid in both
-    forms (rsqrt at a = 0.5, powf at a = 0.75); its time at every level of
-    one direct-API step (20 launches a level)."""
+    forms (rsqrt at a = 0.5, powf at a = 0.75)."""
     import torch
 
     from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
 
     gen = torch.Generator(device=dev).manual_seed(6)
-
-    def fields(shape):
-        duvw = 0.1 * torch.randn((3,) + shape, generator=gen, device=dev)
-        base = 2.0 * torch.rand((3,) + shape, generator=gen, device=dev)
-        return duvw, base
-
-    duvw, base = fields((13, 73, 77))
+    duvw = 0.1 * torch.randn((3, 13, 73, 77), generator=gen, device=dev)
+    base = 2.0 * torch.rand((3, 13, 73, 77), generator=gen, device=dev)
     for a_smooth in (0.5, 0.75):
         params = spk.psi_params(a_smooth, 1.25, 1.5, 1.75)
         e = float((spk.psi_field(duvw, base, *params)
@@ -896,31 +895,199 @@ def phase_psi_field_shapes(card, dev, plan, d):
             f"= {e:.3e}")
         check(e == 0.0, f"psi_field is not bit-equal on (13,73,77) at "
               f"a={a_smooth}: {e}")
-    per_level = {}
+
+
+# phase 2b: the tick block's shapes (ringed), counts and its bound's terms
+TICK_SHAPES = ((11, 71, 71), (23, 170, 170), (19, 133, 157), (66, 514, 514))
+TICK_COUNTS = (1, 2, 9, 10)
+TICK_BYTES = 72      # a cell: increments, base, SJ read, increments written
+TICK_OPS = 190       # a cell and iteration: ~70 psi, ~120 a half-sweep cell
+
+
+def tick_bounds(shape, n_iters):
+    """(ms, by) of one tick block with each input read once and the output
+    written once (the contract's bound), and the ms of TICK_BYTES a cell
+    streamed every iteration (the one-pass-an-iteration bound)."""
+    cells = shape[0] * shape[1] * shape[2]
+    return (bound_ms(TICK_BYTES * cells, TICK_OPS * cells * n_iters),
+            n_iters * bound_ms(TICK_BYTES * cells, 0)[0])
+
+
+def phase_psi_tick(card, dev, plan, d):
+    """sor_iterations_psi_f32 against its plain version, the loop
+    sor_iterations_psi_plain, max |diff| = 0: at TICK_SHAPES
+    for TICK_COUNTS iterations, in the mode its plan takes and in the other
+    one, eagerly and replayed in a CUDA graph (an odd and an even count), the
+    ring untouched; then a tick block of update_lag iterations at every
+    level of a direct-API step, device only: the plan's mode, the other
+    mode and the three-kernel loop it replaced (psi_field_f32 + 2 x
+    sor_halfsweep_psi_f32 an iteration), in one call. Returns rows 6, 7."""
+    import torch
+
+    from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lag = d["update_lag"]
+    modes = list(spk.PSI_MODES.values())
+
+    def fields(shape):
+        duvw = 0.1 * torch.randn((3,) + shape, generator=gen, device=dev)
+        base = 2.0 * torch.rand((3,) + shape, generator=gen, device=dev)
+        sj = 0.1 * torch.rand((9,) + shape, generator=gen, device=dev)
+        sj[:3] += 0.5
+        return duvw, base, sj
+
+    def tick_params(a_smooth, h):
+        t = np.float32
+        return spk.psi_params(a_smooth, *h) + tuple(
+            float(t(a) / (t(x) * t(x))) for a, x in zip(d["alpha"], h))
+
+    err = 0.0
+    for shape in TICK_SHAPES:
+        duvw, base, sj = fields(shape)
+        scratch = torch.empty_like(duvw)
+        chosen = spk.psi_tick_plan(shape)
+        params = {a: tick_params(a, (1.0, 1.25, 1.5)) for a in (0.5, 0.75)}
+        errs = {}
+        for n in TICK_COUNTS:
+            for a_smooth in (0.5, 0.75) if n < 3 else (0.5,):
+                want = spk.sor_iterations_psi_plain(
+                    duvw.clone(), base, sj, params[a_smooth], n)
+                for mode in modes:
+                    got = spk.sor_iterations_psi(
+                        duvw.clone(), base, sj, params[a_smooth], n, scratch,
+                        mode)
+                    ring = bool(torch.equal(got[:, 0], duvw[:, 0]) and
+                                torch.equal(got[:, :, :, -1],
+                                            duvw[:, :, :, -1]))
+                    e = float((got - want).abs().max())
+                    errs[(n, a_smooth, mode)] = e
+                    check(ring, f"sor_iterations_psi wrote the ring at "
+                          f"{shape} x{n} ({mode})")
+        graphed = {}
+        for n in (9, 10):
+            a = duvw.clone()
+            spk.sor_iterations_psi(a, base, sj, params[0.5], n, scratch)
+            a.copy_(duvw)
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                spk.sor_iterations_psi(a, base, sj, params[0.5], n, scratch)
+            for _ in range(2):
+                a.copy_(duvw)
+                g.replay()
+            want = spk.sor_iterations_psi_plain(duvw.clone(), base, sj,
+                                                params[0.5], n)
+            torch.cuda.synchronize()
+            graphed[n] = float((a - want).abs().max())
+            del g
+        worst = max(max(errs.values()), max(graphed.values()))
+        err = max(err, worst)
+        log(f"  sor_iterations_psi {shape} x{list(TICK_COUNTS)} (a=0.75 at "
+            f"1, 2), both modes: max|kernel-plain| {worst:.3e} (eager "
+            f"{max(errs.values()):.3e}, CUDA graph x9/x10 {graphed}); plan "
+            f"{chosen}")
+        check(worst == 0.0, f"sor_iterations_psi is not bit-equal at "
+              f"{shape}: {errs}, graph {graphed}")
+        del duvw, base, sj, scratch
+
+    # a tick block at every level of one direct-API step, device only
+    per_level, three_total, total = {}, 0.0, 0.0
     for _, size, (hz, hy, hx) in plan:
-        duvw, base = fields(tuple(n + 2 for n in size))
-        params = spk.psi_params(d["a_smooth"], hx, hy, hz)
-        out = torch.empty_like(duvw[0])
-        per_level[size] = d["iterations"] * graph_ms(
-            lambda: spk.psi_field(duvw, base, *params, out=out))
-    log(f"  psi_field_f32 per level of a direct-API step ({d['iterations']} "
-        f"launches each, device ms, CUDA graph): "
-        f"{ {str(k): round(v, 4) for k, v in per_level.items()} }, summed "
-        f"{sum(per_level.values()):.3f} ms; card {card}")
+        shape = tuple(n + 2 for n in size)
+        duvw, base, sj = fields(shape)
+        scratch = torch.empty_like(duvw)
+        psi = torch.empty_like(duvw[0])
+        params = tick_params(d["a_smooth"], (hx, hy, hz))
+        chosen = spk.psi_tick_plan(shape)["mode"]
+
+        def three():
+            for _ in range(lag):
+                spk.psi_field(duvw, base, *params[:5], out=psi)
+                spk.halfsweep_psi(duvw, base, sj, psi, *params[5:], 0)
+                spk.halfsweep_psi(duvw, base, sj, psi, *params[5:], 1)
+
+        fns = {"three kernels": three}
+        for mode in [chosen] + [m for m in modes if m != chosen]:
+            fns[mode] = (lambda m=mode: spk.sor_iterations_psi(
+                duvw, base, sj, params, lag, scratch, m))
+        n = 3 if shape[0] > 40 else 10
+        t = {k: graph_ms(f, n) for k, f in fns.items()}
+        t_back = {k: graph_ms(fns[k], n) for k in reversed(fns)}
+        ms = {k: round(min(t[k], t_back[k]), 4) for k in fns}
+        per_level[str(shape)] = dict(ms, mode=chosen,
+                                     bound_per_iteration=round(
+                                         tick_bounds(shape, lag)[1], 4))
+        total += ms[chosen]
+        three_total += ms["three kernels"]
+        del duvw, base, sj, scratch, psi
+    blocks = d["iterations"] // lag
+    log(f"  sor_iterations_psi_f32 tick block of {lag} per level of a "
+        f"direct-API step (device ms, CUDA graph, min of two turns; the "
+        f"plan's mode, the other mode, the three-kernel loop it replaced): "
+        f"{per_level}; x{blocks} blocks a level: {blocks * total:.3f} ms "
+        f"against {blocks * three_total:.3f} ms; card {card}")
+
+    rows = []
+    for shape, replaces in ((TICK_SHAPES[1], 247), (TICK_SHAPES[3], 435)):
+        duvw, base, sj = fields(shape)
+        scratch = torch.empty_like(duvw)
+        psi = torch.empty_like(duvw[0])
+        params = tick_params(d["a_smooth"], (1.0, 1.25, 1.5))
+        (bnd, by), per_iter = tick_bounds(shape, lag)
+        big = shape[0] > 40
+
+        def kern():
+            spk.sor_iterations_psi(duvw, base, sj, params, lag, scratch)
+
+        def three():
+            for _ in range(lag):
+                spk.psi_field(duvw, base, *params[:5], out=psi)
+                spk.halfsweep_psi(duvw, base, sj, psi, *params[5:], 0)
+                spk.halfsweep_psi(duvw, base, sj, psi, *params[5:], 1)
+
+        row = dict(
+            name="sor_iterations_psi_f32", route="cuda", path="direct",
+            source="flowreg3d_tpu_torch/csrc/sor_psi_iterations.cu",
+            replaces=f"flowreg3d_tpu/core/solver_pallas.py:{replaces}",
+            max_abs_err=err, ms=cuda_ms(kern, 5 if big else 50),
+            graph_ms=graph_ms(kern, 3 if big else 20),
+            three_kernel_graph_ms=graph_ms(three, 3 if big else 20),
+            plain_ms=cuda_ms(lambda: spk.sor_iterations_psi_plain(
+                duvw, base, sj, params, lag, psi), 2, 1),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+            bound_per_iteration_ms=per_iter,
+            mode=spk.psi_tick_plan(shape)["mode"],
+            shape=f"duvw (3,{shape[0]},{shape[1]},{shape[2]}), a tick block "
+                  f"of {lag} iterations")
+        log(f"  sor_iterations_psi_f32 at {shape}: {row['ms']:.4f} ms a tick"
+            f" block of {lag} (device only {row['graph_ms']:.4f}; the three-"
+            f"kernel loop {row['three_kernel_graph_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}, inputs "
+            f"read once), {per_iter:.4f} ms at {TICK_BYTES} B a cell an "
+            f"iteration; {row['mode']}; card {card}")
+        rows.append(row)
+        del duvw, base, sj, scratch, psi
+    return rows
 
 
 def step_bounds(plan, d):
-    """ms: each kernel's bound (as phase 2b counts it) summed over one
-    direct-API step's launches at every level's shape."""
-    psi = sweep = med = 0.0
+    """ms: each kernel's bound summed over one direct-API step's launches at
+    every level's shape; the psi tick block's also at TICK_BYTES a cell an
+    iteration."""
+    from flowreg3d_tpu_torch.core.solver import _blocks
+
+    tick = per_iter = med = 0.0
     for _, (z, y, x), _ in plan:
-        cells = (z + 2) * (y + 2) * (x + 2)
-        psi += d["iterations"] * bound_ms(28 * cells, 70 * cells)[0]
-        sweep += 2 * d["iterations"] * bound_ms(70 * cells, 60 * cells)[0]
+        shape = (z + 2, y + 2, x + 2)
+        for n in _blocks(d["iterations"], d["update_lag"]):
+            (b, _), p = tick_bounds(shape, n)
+            tick += b
+            per_iter += p
         n = 3 * z * y * x
         med += bound_ms((3 * (z + 4) * (y + 4) * (x + 4) + n) * 4, 250 * n)[0]
-    return {"psi_field_f32": round(psi, 4),
-            "sor_halfsweep_psi_f32": round(sweep, 4),
+    return {"sor_iterations_psi_f32": round(tick, 4),
+            "sor_iterations_psi_f32 per iteration": round(per_iter, 4),
             "median5_f32": round(med, 4)}
 
 
@@ -930,6 +1097,7 @@ def phase_direct(card, dev):
     import torch
 
     from flowreg3d_tpu_torch.core.pyramid import level_schedule
+    from flowreg3d_tpu_torch.core.solver import _blocks
 
     d = direct_defaults()
     plan, _, _ = level_schedule(SHAPE, d["eta"], d["levels"], d["min_level"])
@@ -939,8 +1107,10 @@ def phase_direct(card, dev):
     fixed, moving = make_pair(SHAPE)
     fixed_t, moving_t = (torch.from_numpy(a).to(dev) for a in (fixed, moving))
     expected = {
-        "psi_field_f32": len(plan) * d["iterations"],
-        "sor_halfsweep_psi_f32": 2 * len(plan) * d["iterations"],
+        "sor_iterations_psi_f32": len(plan) * len(_blocks(d["iterations"],
+                                                          d["update_lag"])),
+        "psi_field_f32": 0,
+        "sor_halfsweep_psi_f32": 0,
         "map_coords_f32": len(plan) + 1,
         "median5_f32": sum(min(size) > 5 for _, size, _ in plan),
         "sor_iterations_f32": 0,
@@ -1062,12 +1232,12 @@ def per_solve_launches(o, plan, channels=1):
     from flowreg3d_tpu_torch.core.solver import _blocks
 
     psi = o.a_smooth != 1.0
+    blocks = len(plan) * len(_blocks(o.iterations, o.update_lag))
     return {
-        "psi_field_f32": len(plan) * o.iterations * psi,
-        "sor_halfsweep_psi_f32": 2 * len(plan) * o.iterations * psi,
-        "sor_iterations_f32": len(plan) * len(_blocks(o.iterations,
-                                                      o.update_lag))
-        * (not psi),
+        "sor_iterations_psi_f32": blocks * psi,
+        "psi_field_f32": 0,
+        "sor_halfsweep_psi_f32": 0,
+        "sor_iterations_f32": blocks * (not psi),
         "map_coords_f32": (len(plan) + 1) * channels,
         "median5_f32": sum(min(size) > 5 for _, size, _ in plan),
         "sor_halfsweep_const_f32": 0,
@@ -2027,9 +2197,12 @@ def spatial_expected(params, n, shape):
     for _, size, _ in plan:
         sharded = size[0] >= 4 * n
         mult = n if sharded else 1
-        if params["a_smooth"] != 1.0:
-            e["psi_field_f32"] += mult * it
-            e["sor_halfsweep_psi_f32"] += 2 * mult * it
+        if params["a_smooth"] != 1.0 and sharded:
+            e["psi_field_f32"] += n * it
+            e["sor_halfsweep_psi_f32"] += 2 * n * it
+        elif params["a_smooth"] != 1.0:
+            e["sor_iterations_psi_f32"] += len(_blocks(it,
+                                                       params["update_lag"]))
         elif sharded:
             e["sor_halfsweep_const_f32"] += 2 * n * it
         else:
@@ -2844,8 +3017,11 @@ def ab_child(tree):
     through a CUDA graph: the SOR tick block (sweep_iterations, 5
     iterations) at every canonical level and at (66,514,514), the warp at
     full size for orders 3 and 1, the median and the psi field at two shapes
-    each; one line 'AB {json}'. Uses only entry points that every slice of
-    the port since the second has."""
+    each, and the psi tick block (sweep_iterations_psi, 10 iterations) at
+    two shapes; one profiled warm direct-API step (device busy ms, kernel
+    executions) and phase 7's batched executor at the direct options (warm
+    ms a frame); one line 'AB {json}'. Uses only entry points that every
+    slice of the port since the fifth has."""
     import torch
 
     sys.path.insert(0, str(Path(tree).resolve()))
@@ -2905,12 +3081,21 @@ def ab_child(tree):
         xp = torch.randn(shape, generator=gen, device=dev)
         timed(f"median5 xp {shape}", lambda: mk.median5(xp))
     params = spk.psi_params(0.5, 1.0, 1.0, 1.0)
+    tick = params + (0.7, 0.9, 1.3)
     for shape in ((23, 170, 170), (66, 514, 514)):
         duvw = 0.1 * torch.randn((3,) + shape, generator=gen, device=dev)
         base = 2.0 * torch.rand((3,) + shape, generator=gen, device=dev)
+        sj = 0.1 * torch.rand((9,) + shape, generator=gen, device=dev)
+        sj[:3] += 0.5
         psi = torch.empty_like(duvw[0])
         timed(f"psi_field {shape}",
               lambda: spk.psi_field(duvw, base, *params, out=psi))
+        timed(f"psi tick block x10 {shape}",
+              lambda: spk.sweep_iterations_psi(duvw, base, sj, tick, 10),
+              5 if shape[0] > 60 else 20)
+    del duvw, base, sj, psi
+    direct_busy = profile_direct_step(fixed_t, moving_t)
+    executor_ms = executor_direct_ms(fixed, frames, dev)
     print("AB " + json.dumps(dict(
         tree=str(tree), package=ft.__file__, card=card_line(),
         step_ms=steps,
@@ -2918,7 +3103,57 @@ def ab_child(tree):
         pipeline_s=pipeline_s,
         pipeline_volumes_per_s={k: PIPELINE_T / float(np.median(v))
                                 for k, v in pipeline_s.items()},
+        direct_step_profiled=direct_busy,
+        executor_direct_options_ms_a_frame=executor_ms,
         kernels_ms_events_and_graph=kernels)), flush=True)
+
+
+def profile_direct_step(fixed_t, moving_t):
+    """One warm direct-API step under torch.profiler: the device's busy ms
+    (kernel time summed) and its kernel executions."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_step(fixed_t, moving_t, {}, True)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return dict(busy_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+                kernels=sum(e.count for e in kern))
+
+
+def executor_direct_ms(fixed, frames, dev, n=3):
+    """Phase 7's batched executor (one CUDA graph a frame) at the direct
+    API's options: warm ms a frame, each of ``n`` runs."""
+    import torch
+
+    from flowreg3d_tpu_torch.parallel import executors as tex
+    from flowreg3d_tpu_torch.pipeline.device_pipeline import preprocess
+
+    o = pipeline_options(False)
+    raw = torch.from_numpy(frames[..., None]).to(dev)
+    ref_raw = torch.from_numpy(fixed[..., None]).to(dev)
+    proc, ref_proc = preprocess(raw, o, ref_raw), preprocess(ref_raw, o)
+    w_init = torch.zeros(SHAPE + (3,), device=dev)
+    bat = tex.BatchedExecutor3D(device=dev)
+
+    def run():
+        bat.process_batch(raw, proc, ref_raw, ref_proc, w_init, "cubic",
+                          None, o.to_dict())
+        torch.cuda.synchronize()
+
+    tex.clear_frame_graphs()
+    run()                                   # captures
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        run()
+        out.append(1e3 * (time.perf_counter() - t) / len(frames))
+    tex.clear_frame_graphs()
+    return out
 
 
 def ab(parent):

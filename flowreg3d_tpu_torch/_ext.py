@@ -3,7 +3,8 @@
 One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library
 with a plain C interface (no PyTorch headers), loaded with ``ctypes``.
 The library is built at first use into ``_build/`` under a name that
-carries a hash of the sources and flags, so an edited source rebuilds.
+carries a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
@@ -55,6 +56,12 @@ SIGNATURES = {
     # duvw, base, sj, P, M, N, ax, ay, az, parity, z_off, z_lo, z_hi, stream
     "sor_halfsweep_const_f32": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I,
                                 _I, _I, _P),
+    # duvw, scratch, base, sj, P, M, N, a, a - 1, 0.5/hx, 0.5/hy, 0.5/hz,
+    # ax, ay, az, n_iters, mode (0: by size), stream
+    "sor_iterations_psi_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                               _F, _F, _F, _F, _I, _I, _P),
+    # P, M, N, mode, out[7]: the launch plan sor_iterations_psi_f32 takes
+    "sor_iterations_psi_plan": (_I, _I, _I, _I, _IP),
 }
 
 # what the last build printed (ptxas register / spill report), for logs
@@ -82,7 +89,7 @@ def _sources():
 
 def _digest(srcs):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -167,4 +174,5 @@ def launch_counters():
             "median5_f32": median_kernel.median5,
             "psi_field_f32": solver_psi_kernel.psi_field,
             "sor_halfsweep_psi_f32": solver_psi_kernel.halfsweep_psi,
-            "sor_halfsweep_const_f32": solver_psi_kernel.halfsweep}
+            "sor_halfsweep_const_f32": solver_psi_kernel.halfsweep,
+            "sor_iterations_psi_f32": solver_psi_kernel.sor_iterations_psi}

@@ -15,8 +15,9 @@ Two formulations:
 - ``a_smooth != 1``: per tick block, ``tick_update``, then ``update_lag``
   psi -> red -> black iterations of ``core/solver_psi_kernel.py`` on the
   unfolded base flow (the JAX package's XLA scheme: psi from the pre-red
-  increments, reused for black), the CUDA kernels on CUDA tensors and
-  their plain versions on CPU tensors or with ``use_kernels=False``.
+  increments, reused for black): one cooperative launch of
+  ``sor_iterations_psi_f32`` on CUDA tensors, its plain loop on CPU
+  tensors or with ``use_kernels=False``.
 
 Neither sweep writes the increments' ring; ``set_boundary_3d`` sets it on
 the result.
@@ -68,12 +69,15 @@ def _solve_psi(Jc, weight, a_vec, u, v, w, a_smooth, ax, ay, az, hx, hy, hz,
                iterations, update_lag, use_kernels):
     base = torch.stack([u, v, w])
     duvw = torch.zeros_like(base)
-    psi = torch.empty_like(u)
+    # the kernel's scratch, or the plain loop's psi: one a level
+    kernel = use_kernels and base.is_cuda
+    scratch = torch.empty_like(base) if kernel else None
+    psi = None if kernel else torch.empty_like(u)
     params = psi_params(a_smooth, hx, hy, hz, u.dtype) + (ax, ay, az)
     for k_iters in _blocks(iterations, update_lag):
         SJ = tick_update(Jc, weight, a_vec, duvw[0], duvw[1], duvw[2])
         sweep_iterations_psi(duvw, base, torch.stack(SJ), params, k_iters,
-                             use_kernels, psi)
+                             use_kernels, psi, scratch)
     return tuple(set_boundary_3d(duvw[k].clone()) for k in range(3))
 
 

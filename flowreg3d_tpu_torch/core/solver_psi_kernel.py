@@ -1,15 +1,19 @@
-"""Flow-driven-diffusivity SOR sweeps: the CUDA kernels of csrc/sor_psi.cu,
-their plain PyTorch versions, and the host loop.
+"""Flow-driven-diffusivity SOR sweeps: the CUDA kernels of csrc/sor_psi.cu
+and csrc/sor_psi_iterations.cu, their plain PyTorch versions, and the host
+side.
 
 Counterpart of ``flowreg3d_tpu/core/solver_pallas.py``:
 ``sweep_iterations_pallas_psi`` (and its y-tiled ``_sweep_iterations_psi_ty``)
-is ``sweep_iterations_psi``; ``halfsweep_pallas_psi`` is ``halfsweep_psi``;
-``halfsweep_pallas`` (one ``a_smooth == 1`` half-sweep on the unfolded
-base) is ``halfsweep``. Fields are stacked: the increments ``duvw`` and the
-base flow ``base`` (3,P,M,N), the data terms ``sj`` (9,P,M,N) in the order
-[SJ11,SJ22,SJ33,SJ12,SJ13,SJ23,SJ14,SJ24,SJ34], the diffusivity ``psi``
-(P,M,N). One iteration is ``psi_field`` from the pre-red increments, then
-the red and the black half-sweep with that psi.
+is ``sor_iterations_psi``, one cooperative launch a tick block, whose plain
+version is the loop ``sor_iterations_psi_plain``; ``halfsweep_pallas_psi``
+is ``halfsweep_psi``; ``halfsweep_pallas`` (one ``a_smooth == 1``
+half-sweep on the unfolded base) is ``halfsweep``. Fields are stacked: the
+increments ``duvw`` and the base flow ``base`` (3,P,M,N), the data terms
+``sj`` (9,P,M,N) in the order [SJ11,SJ22,SJ33,SJ12,SJ13,SJ23,SJ14,SJ24,
+SJ34], the diffusivity ``psi`` (P,M,N). One iteration is ``psi_field``
+from the pre-red increments, then the red and the black half-sweep with
+that psi. The Z-sharded solver (``parallel/spatial.py``) runs the three
+phases apart, in slab mode, to exchange ghost rows between them.
 
 No kernel writes the increments' ring: ``psi_field`` reads the increments at
 per-axis clamped indices and the half-sweeps take ``base_ghost + inc_centre``
@@ -27,6 +31,8 @@ applies there). The default, the whole volume, is ``(0, 1, P - 2)``.
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises, and counts the launch.
 """
+
+import ctypes
 
 import torch
 
@@ -270,17 +276,86 @@ halfsweep_psi.launches = 0
 halfsweep.launches = 0
 
 
-def sweep_iterations_psi(duvw, base, sj, params, n_iters, use_kernels=True,
-                         psi=None):
-    """``n_iters`` psi -> red -> black iterations in place on ``duvw``: 3
-    launches an iteration (``use_kernels=False``: the plain versions on any
-    device). params: psi_params(...) + (ax, ay, az); ``psi`` an optional
-    (P,M,N) buffer for the diffusivity."""
+def sor_iterations_psi_plain(duvw, base, sj, params, n_iters, psi=None):
+    """Plain version of ``sor_iterations_psi_f32``: ``n_iters`` psi -> red
+    -> black iterations of ``psi_field_plain`` and ``halfsweep_psi_plain``
+    in place on ``duvw``; ``psi`` an optional (P,M,N) buffer."""
     a, expo, ihx, ihy, ihz, ax, ay, az = params
-    field = psi_field if use_kernels else psi_field_plain
-    sweep = halfsweep_psi if use_kernels else halfsweep_psi_plain
     for _ in range(n_iters):
-        psi = field(duvw, base, a, expo, ihx, ihy, ihz, out=psi)
-        sweep(duvw, base, sj, psi, ax, ay, az, 0)
-        sweep(duvw, base, sj, psi, ax, ay, az, 1)
+        psi = psi_field_plain(duvw, base, a, expo, ihx, ihy, ihz, out=psi)
+        halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, 0)
+        halfsweep_psi_plain(duvw, base, sj, psi, ax, ay, az, 1)
     return duvw
+
+
+def sor_iterations_psi(duvw, base, sj, params, n_iters, scratch=None,
+                       mode=None):
+    """One tick block of ``n_iters`` psi -> red -> black iterations in place
+    on ``duvw`` (whole volume): one cooperative launch on CUDA tensors.
+    params: psi_params(...) + (ax, ay, az). ``scratch``: a (3,P,M,N)
+    buffer the kernel works in (allocated here when None); its contents
+    are overwritten. ``mode``: None runs the plan's mode for the level's
+    size; a name in ``PSI_MODES`` asks for that one (to compare them)."""
+    if not _check_stacks("sor_iterations_psi", duvw, base, sj):
+        return sor_iterations_psi_plain(duvw, base, sj, params, n_iters)
+    if scratch is None:
+        scratch = torch.empty_like(duvw)
+    _ext.check_cuda(scratch, "sor_iterations_psi scratch", 4, torch.float32)
+    if (scratch.shape != duvw.shape or scratch.device != duvw.device
+            or scratch.data_ptr() == duvw.data_ptr()):
+        raise ValueError(f"sor_iterations_psi: scratch {tuple(scratch.shape)}"
+                         f" on {scratch.device}; want a second "
+                         f"{tuple(duvw.shape)} buffer on {duvw.device}")
+    if n_iters <= 0:
+        return duvw
+    _, P, M, N = duvw.shape
+    with torch.cuda.device(duvw.device):
+        rc = _ext.lib().sor_iterations_psi_f32(
+            duvw.data_ptr(), scratch.data_ptr(), base.data_ptr(),
+            sj.data_ptr(), P, M, N, *(float(p) for p in params),
+            int(n_iters), _mode_code(mode), _ext.stream_of(duvw))
+    _ext.raise_on_error(rc, "sor_iterations_psi_f32")
+    sor_iterations_psi.launches += 1
+    return duvw
+
+
+sor_iterations_psi.launches = 0
+
+PSI_MODES = {1: "phases in turn", 2: "streamed"}
+
+
+def _mode_code(mode):
+    if mode is None:
+        return 0
+    codes = {v: k for k, v in PSI_MODES.items()}
+    if mode not in codes:
+        raise ValueError(f"sor_iterations_psi: mode {mode!r}; want None or "
+                         f"one of {sorted(codes)}")
+    return codes[mode]
+
+
+def psi_tick_plan(shape, device=None, mode=None):
+    """How ``sor_iterations_psi_f32`` runs at duvw shape (3,P,M,N) or
+    (P,M,N) on a CUDA device (in ``mode``, None: by size): mode, blocks,
+    threads a block, planes a z-chunk, chunks and (y, x) tiles of a work
+    item, dynamic shared bytes a block."""
+    P, M, N = shape[-3:]
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        _ext.raise_on_error(_ext.lib().sor_iterations_psi_plan(
+            P, M, N, _mode_code(mode), out), "sor_iterations_psi_plan")
+    plan = dict(zip(("mode", "blocks", "threads", "z_chunk", "chunks",
+                     "tiles", "shared_bytes"), out))
+    plan["mode"] = PSI_MODES[plan["mode"]]
+    return plan
+
+
+def sweep_iterations_psi(duvw, base, sj, params, n_iters, use_kernels=True,
+                         psi=None, scratch=None):
+    """One tick block of ``n_iters`` psi -> red -> black iterations in place
+    on ``duvw``: one launch of ``sor_iterations_psi`` (``scratch`` its
+    working buffer), or with ``use_kernels=False`` the plain loop on any
+    device (``psi`` its diffusivity buffer)."""
+    if use_kernels:
+        return sor_iterations_psi(duvw, base, sj, params, n_iters, scratch)
+    return sor_iterations_psi_plain(duvw, base, sj, params, n_iters, psi)

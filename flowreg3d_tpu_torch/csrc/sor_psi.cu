@@ -1,13 +1,14 @@
-// The flow-driven-diffusivity (a_smooth != 1) SOR solver, fp32: the
-// diffusivity field and the red/black half-sweeps on the unfolded base flow.
+// The flow-driven-diffusivity (a_smooth != 1) SOR solver, fp32, one launch
+// a phase: the diffusivity field and the red/black half-sweeps on the
+// unfolded base flow. The whole-volume tick block runs as one cooperative
+// launch (csrc/sor_psi_iterations.cu); these kernels serve the Z-sharded
+// solver (parallel/spatial.py), which exchanges ghost rows between phases.
+// The per-cell code is csrc/sor_psi_cell.cuh, shared with that kernel.
 //
 // Replaces:
-//   flowreg3d_tpu/core/solver_pallas.py _sweep_kernel_psi (:247, through
-//     sweep_iterations_pallas_psi) and its y-tiled twin _sweep_kernel_psi_ty
-//     (:435, through _sweep_iterations_psi_ty): one TPU launch runs n_iters
-//     x (psi phase, red phase, black phase); here psi_field_f32 is phase 0
-//     and sor_halfsweep_psi_f32 phases 1-2, one launch each, and one kernel
-//     serves every plane size;
+//   flowreg3d_tpu/core/solver_pallas.py _sweep_kernel_psi (:247): one TPU
+//     launch runs n_iters x (psi phase, red phase, black phase); on a slab,
+//     psi_field_f32 is phase 0 and sor_halfsweep_psi_f32 phases 1-2;
 //   :148 _kernel_psi (through halfsweep_pallas_psi): one half-sweep given
 //     psi -> sor_halfsweep_psi_f32;
 //   :33 _kernel (through halfsweep_pallas): one a_smooth == 1 half-sweep on
@@ -52,8 +53,7 @@
 // Numerics: each expression is written operation for operation like the
 // plain PyTorch versions in core/solver_psi_kernel.py, in the same order,
 // and the library is built with --fmad=false, so kernel and plain version
-// round alike (PyTorch rounds a Python scalar operand to float first, as
-// the constants below are).
+// round alike (csrc/sor_psi_cell.cuh).
 //
 // Bound: bytes. psi_field reads base and increments (6 fields) and writes
 // psi (1): 28 B a cell, 488 MB at (66, 514, 514), 0.146 ms at 3.35 TB/s.
@@ -63,7 +63,7 @@
 // form reads no psi, 0.344 ms. Flops (~120 an active cell) are far below
 // the fp32 rate.
 //
-// Design: psi_field_f32 uses 2.5-D blocking (see psi_field_kernel): a
+// Design: psi_field_f32 uses 2.5-D blocking (sor_psi::psi_walk): a
 // block walks z over a 32 x 8 (x, y) tile and keeps each plane's tot_c in
 // shared memory, so base and increments leave device memory about once
 // (the one-cell halo rereads mostly hit L2); a small level cuts z into
@@ -78,31 +78,11 @@
 
 #include <cuda_runtime.h>
 
+#include "sor_psi_cell.cuh"
+
 namespace {
 
-constexpr float kOmega = 1.95f;
-// rounded from double, as the plain version rounds its Python scalars
-constexpr float kOneMinusOmega = (float)(1.0 - 1.95);
-constexpr float kEpsSmooth = (float)1e-5;
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// psi_field_kernel: a block owns a PTY x PTX tile of (y, x) and walks a
-// chunk of z. Each plane's tot_c = base_c + inc_c(clamped), for u, v and w,
-// is computed once per cell into a ring of shared-memory planes with a
-// one-cell halo (clamped to the grid, which is the gradient's clamp); the
-// z-gradient reads the planes above and below, the y- and x-gradients the
-// halo of the current one. Each thread holds the next two planes' base and
-// increments for its halo cells in registers, so the loads of plane z + 3
-// are in flight while plane z is computed; one barrier a plane.
-constexpr int PTX = 32, PTY = 8;           // cells of a tile
-constexpr int HX = PTX + 2, HY = PTY + 2;  // with the halo
-constexpr int HCELLS = HX * HY;
-constexpr int PSI_THREADS = PTX * PTY;
-constexpr int FETCH = (HCELLS + PSI_THREADS - 1) / PSI_THREADS;
-constexpr int SLOTS = 4;  // planes z-1, z, z+1 read while z+2 is stored
+using namespace sor_psi;
 
 __global__ void __launch_bounds__(PSI_THREADS)
     psi_field_kernel(const float* __restrict__ duvw,
@@ -111,89 +91,10 @@ __global__ void __launch_bounds__(PSI_THREADS)
                      float ihy, float ihz, int zc, int i_lo, int i_hi,
                      int g_hi) {
   __shared__ float tot[SLOTS][3][HCELLS];
-  const int tid = threadIdx.y * PTX + threadIdx.x;
-  const int x0 = blockIdx.x * PTX, y0 = blockIdx.y * PTY;
-  const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, P);
-  const long long plane = (long long)M * N;
-  const long long vol = plane * P;
-
-  // this thread's halo cells: base offset q and clamped increment offset r
-  // within a plane (the launcher checks that a plane's offsets fit an int)
-  int qo[FETCH], ro[FETCH];
-  bool on[FETCH];
-#pragma unroll
-  for (int l = 0; l < FETCH; ++l) {
-    const int i = tid + l * PSI_THREADS;
-    on[l] = i < HCELLS;
-    const int y = clampi(y0 + i / HX - 1, 0, M - 1);
-    const int x = clampi(x0 + i % HX - 1, 0, N - 1);
-    qo[l] = y * N + x;
-    ro[l] = clampi(y, 1, M - 2) * N + clampi(x, 1, N - 2);
-  }
-  float b0[FETCH][3], d0[FETCH][3], b1[FETCH][3], d1[FETCH][3];
-  auto fetch = [&](int q, float (&b)[FETCH][3], float (&d)[FETCH][3]) {
-    // plane q, clamped to the grid (to z_hi + 1 in a slab past the volume's
-    // high face); its increment's z clamped to [z_lo, z_hi]
-    const int zq = clampi(q, 0, g_hi);
-    const long long bo = zq * plane, io = clampi(zq, i_lo, i_hi) * plane;
-#pragma unroll
-    for (int l = 0; l < FETCH; ++l)
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        if (on[l]) {
-          b[l][c] = base[c * vol + bo + qo[l]];
-          d[l][c] = duvw[c * vol + io + ro[l]];
-        }
-  };
-  auto store = [&](int q, const float (&b)[FETCH][3],
-                   const float (&d)[FETCH][3]) {  // q >= -1
-    const int s = (q + SLOTS) % SLOTS;
-#pragma unroll
-    for (int l = 0; l < FETCH; ++l)
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        if (on[l]) tot[s][c][tid + l * PSI_THREADS] = b[l][c] + d[l][c];
-  };
-  const int y = y0 + threadIdx.y, x = x0 + threadIdx.x;
-  const int own = (threadIdx.y + 1) * HX + threadIdx.x + 1;
-  auto compute = [&](int z) {
-    const int sm = (z + SLOTS - 1) % SLOTS, s0 = z % SLOTS,
-              sp = (z + 1) % SLOTS;
-    float g = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float gz = (tot[sp][c][own] - tot[sm][c][own]) * ihz;
-      g = g + gz * gz;
-      const float gy = (tot[s0][c][own + HX] - tot[s0][c][own - HX]) * ihy;
-      g = g + gy * gy;
-      const float gx = (tot[s0][c][own + 1] - tot[s0][c][own - 1]) * ihx;
-      g = g + gx * gx;
-    }
-    if (y < M && x < N) {
-      const float s = g + kEpsSmooth;
-      const float p = (expo == -0.5f) ? rsqrtf(s) : powf(s, expo);
-      psi[((long long)z * M + y) * N + x] = a * p;
-    }
-  };
-
-  fetch(z0 - 1, b0, d0);
-  store(z0 - 1, b0, d0);
-  fetch(z0, b0, d0);
-  store(z0, b0, d0);
-  fetch(z0 + 1, b0, d0);
-  fetch(z0 + 2, b1, d1);
-  for (int z = z0; z < z1; z += 2) {  // b0/d0 hold plane z+1, b1/d1 z+2
-    store(z + 1, b0, d0);
-    __syncthreads();
-    if (z + 2 < z1) fetch(z + 3, b0, d0);
-    compute(z);
-    if (z + 1 < z1) {
-      store(z + 2, b1, d1);
-      __syncthreads();
-      if (z + 3 < z1) fetch(z + 4, b1, d1);
-      compute(z + 1);
-    }
-  }
+  const int z0 = blockIdx.z * zc;
+  psi_walk(tot, duvw, base, psi, P, M, N, a, expo, ihx, ihy, ihz,
+           blockIdx.x * PTX, blockIdx.y * PTY, z0, min(z0 + zc, P), i_lo, i_hi,
+           g_hi);
 }
 
 // blocks of psi_field_kernel resident on the current device, cached
@@ -230,58 +131,8 @@ __global__ void halfsweep_kernel(float* __restrict__ duvw,
   if (y > M - 2 || z > z_hi) return;
   const int x = 1 + ((parity + z + z_off + y + 1) & 1) + 2 * k;
   if (x > N - 2) return;
-
-  const long long plane = (long long)M * N;
-  const long long vol = plane * P;
-  const long long c = ((long long)z * M + y) * N + x;
-  const long long off[6] = {-1, 1, -(long long)N, (long long)N, -plane, plane};
-  const bool ghost[6] = {x == 1, x == N - 2, y == 1, y == M - 2, z == z_lo,
-                         z == z_hi};
-
-  float wt[6];
-  if (kPsi) {
-    const float pc = psi[c];
-    const float a_dir[6] = {ax, ax, ay, ay, az, az};
-    for (int d = 0; d < 6; ++d) wt[d] = 0.5f * (pc + psi[c + off[d]]) * a_dir[d];
-  } else {
-    wt[0] = ax; wt[1] = ax; wt[2] = ay; wt[3] = ay; wt[4] = az; wt[5] = az;
-  }
-  const float sw_sum = wt[0] + wt[1] + wt[2] + wt[3] + wt[4] + wt[5];
-
-  float* du = duvw;
-  float* dv = duvw + vol;
-  float* dw = duvw + 2 * vol;
-  const float u0 = du[c], v0 = dv[c], w0 = dw[c];
-  const float s11 = sj[c], s22 = sj[vol + c], s33 = sj[2 * vol + c];
-  const float s12 = sj[3 * vol + c], s13 = sj[4 * vol + c];
-  const float s23 = sj[5 * vol + c], s14 = sj[6 * vol + c];
-  const float s24 = sj[7 * vol + c], s34 = sj[8 * vol + c];
-
-  const float nd[3] = {-(s14 + s12 * v0 + s13 * w0),
-                       -(s24 + s12 * u0 + s23 * w0),
-                       -(s34 + s13 * u0 + s23 * v0)};
-  const float den_data[3] = {s11, s22, s33};
-  const float old[3] = {u0, v0, w0};
-
-  float out[3];
-  for (int comp = 0; comp < 3; ++comp) {
-    const float* b = base + comp * vol;
-    const float* inc = duvw + comp * vol;
-    const float bc = b[c];
-    const float ic = old[comp];
-    float num = nd[comp];
-    for (int d = 0; d < 6; ++d) {
-      const long long q = c + off[d];
-      const float t = b[q] + (ghost[d] ? ic : inc[q]);
-      num = num + wt[d] * (t - bc);
-    }
-    const float den = den_data[comp] + sw_sum;
-    const float frac = (den != 0.0f) ? num / den : 0.0f;
-    out[comp] = kOneMinusOmega * ic + kOmega * frac;
-  }
-  du[c] = out[0];
-  dv[c] = out[1];
-  dw[c] = out[2];
+  halfsweep_cell<kPsi>(duvw, base, sj, psi, P, M, N, ax, ay, az, z, y, x,
+                       z_lo, z_hi);
 }
 
 dim3 sweep_grid(int P, int M, int N, dim3 block) {

@@ -13,7 +13,9 @@ of running eagerly; the resident pipeline on u16 input against the
 host-staged one, bit for bit; the download staging page-locked and
 reused; one Z-sharded frame over two shards of the one card
 ([cuda:0, cuda:0]), the slab kernels against their plain versions, bit for
-bit, with each slab kernel launched.
+bit, with each slab kernel launched; the psi tick block
+(sor_iterations_psi_f32) in both modes against its plain loop, bit for bit,
+for odd and even counts, its plan by size, and its replay in a CUDA graph.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
 from flowreg3d_tpu_torch.core.pyramid import level_schedule
 from flowreg3d_tpu_torch.parallel import executors as tex
 from flowreg3d_tpu_torch.pipeline import (OFOptions, RegistrationConfig,
@@ -138,3 +141,48 @@ def test_spatial_frame_kernels_equal_plain(card, a_smooth):
     assert slab | {"map_coords_f32", "median5_f32"} <= launched
     assert bool(out[True][1]) and bool(out[False][1])
     assert torch.equal(out[True][0], out[False][0])
+
+
+def _tick_fields(card, shape, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    duvw = 0.1 * torch.randn((3,) + shape, generator=gen, device=card)
+    base = 2.0 * torch.rand((3,) + shape, generator=gen, device=card)
+    sj = 0.1 * torch.rand((9,) + shape, generator=gen, device=card)
+    sj[:3] += 0.5
+    return duvw, base, sj
+
+
+TICK_PARAMS = spk.psi_params(0.5, 1.0, 1.25, 1.5) + (0.7, 0.9, 1.3)
+
+
+@pytest.mark.parametrize("mode", ["phases in turn", "streamed"])
+@pytest.mark.parametrize("n_iters", [1, 2, 9])
+def test_psi_tick_block_equals_plain(card, mode, n_iters):
+    duvw, base, sj = _tick_fields(card, (13, 37, 45))
+    before = spk.sor_iterations_psi.launches
+    got = spk.sor_iterations_psi(duvw.clone(), base, sj, TICK_PARAMS,
+                                 n_iters, mode=mode)
+    want = spk.sor_iterations_psi_plain(duvw.clone(), base, sj, TICK_PARAMS,
+                                        n_iters)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, 0], duvw[:, 0])
+    assert spk.sor_iterations_psi.launches == before + 1
+
+
+def test_psi_tick_block_plan_and_graph(card):
+    assert spk.psi_tick_plan((13, 37, 45))["mode"] == "phases in turn"
+    assert spk.psi_tick_plan((27, 514, 514))["mode"] == "streamed"
+    for shape in ((13, 37, 45), (27, 514, 514)):
+        duvw, base, sj = _tick_fields(card, shape, seed=1)
+        scratch = torch.empty_like(duvw)
+        a = duvw.clone()
+        spk.sor_iterations_psi(a, base, sj, TICK_PARAMS, 3, scratch)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            spk.sor_iterations_psi(a, base, sj, TICK_PARAMS, 3, scratch)
+        a.copy_(duvw)
+        graph.replay()
+        want = spk.sor_iterations_psi_plain(duvw.clone(), base, sj,
+                                            TICK_PARAMS, 3)
+        assert torch.equal(a, want)

@@ -4,7 +4,8 @@
 References, all on the CPU: ``flowreg3d_tpu.core.solver._psi_smooth_field``
 and ``_solve(use_pallas=False)`` (the XLA path), the numpy red-black oracle
 of ``tests/core/oracle.py``, and, in the slow tier, the Pallas half-sweeps
-``halfsweep_pallas_psi`` / ``halfsweep_pallas`` in interpret mode.
+``halfsweep_pallas_psi`` / ``halfsweep_pallas`` and the Pallas tick block
+``sweep_iterations_pallas_psi`` in interpret mode.
 
 Bounds: psi within 2e-5 relative (the port takes rsqrt where JAX takes a
 general power, and multiplies by 0.5/h where JAX divides by 2h: last-bit
@@ -21,6 +22,7 @@ import torch
 import jax.numpy as jnp
 
 from flowreg3d_tpu.core import solver as jsolver
+from flowreg3d_tpu.core.solver import _solve
 
 from flowreg3d_tpu_torch.core import solver_psi_kernel as spk
 from flowreg3d_tpu_torch.core import solver as tsolver
@@ -133,12 +135,80 @@ def test_plain_path_counts_no_launch_and_matches_wrappers():
     J, weight, u, v, w = _inputs(SHAPE, seed=5)
     args = (J, weight, u, v, w, ALPHA, [0.45], 0.5, H, 10, 5)
     before = (spk.psi_field.launches, spk.halfsweep_psi.launches,
-              spk.halfsweep.launches)
+              spk.halfsweep.launches, spk.sor_iterations_psi.launches)
     for a, b in zip(_port(*args, use_kernels=True),
                     _port(*args, use_kernels=False)):
         np.testing.assert_array_equal(a, b)
     assert (spk.psi_field.launches, spk.halfsweep_psi.launches,
-            spk.halfsweep.launches) == before
+            spk.halfsweep.launches,
+            spk.sor_iterations_psi.launches) == before
+
+
+ODD = (7, 11, 13)
+
+
+def _tick_fields(seed):
+    """Increments with a noisy ring, base and SJ on the odd grid ODD."""
+    rng = np.random.default_rng(seed)
+    duvw = (0.1 * rng.standard_normal((3,) + ODD)).astype(np.float32)
+    base = (0.5 * rng.random((3,) + ODD)).astype(np.float32)
+    sj = (0.1 * rng.random((9,) + ODD)).astype(np.float32)
+    sj[:3] += 0.5
+    return duvw, base, sj
+
+
+def _tick_params(a_smooth):
+    """psi_params + (ax, ay, az) as compute_flow_level_cl rounds them."""
+    t = np.float32
+    hz, hy, hx = H
+    return spk.psi_params(a_smooth, hx, hy, hz) + tuple(
+        float(t(a) / (t(h) * t(h))) for a, h in zip(ALPHA, (hx, hy, hz)))
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+def test_tick_block_matches_jax_xla(n_iters):
+    """One tick block of the kernel's plain version (the loop of psi field,
+    red and black half-sweeps) from zero increments against the XLA
+    iterations of JAX's _solve over one tick block: with one channel,
+    weight 1 and a_data 1 its tick_update returns J itself, so J carries
+    SJ (J44 unused)."""
+    _, base, sj = _tick_fields(8)
+    Jc = np.zeros((10, 1) + ODD, np.float32)
+    Jc[[0, 1, 2, 4, 5, 6, 7, 8, 9], 0] = sj
+    hz, hy, hx = H
+    want = _solve(jnp.asarray(Jc), jnp.ones((1,) + ODD, jnp.float32),
+                  *(jnp.asarray(b) for b in base),
+                  jnp.asarray(ALPHA, jnp.float32),
+                  jnp.asarray([1.0], jnp.float32), jnp.float32(0.5),
+                  jnp.float32(hx), jnp.float32(hy), jnp.float32(hz),
+                  n_iters, n_iters, False, False)
+    got = spk.sor_iterations_psi(torch.zeros((3,) + ODD),
+                                 torch.from_numpy(base),
+                                 torch.from_numpy(sj), _tick_params(0.5),
+                                 n_iters)
+    spk.set_boundary_3d(got)
+    np.testing.assert_allclose(got.numpy(), np.stack(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_tick_block_cpu_path_is_plain_and_makes_no_launch():
+    """On CPU tensors sor_iterations_psi is its plain loop, for odd and
+    even counts, leaves the ring alone and counts no launch; so does the
+    level solver."""
+    duvw, base, sj = (torch.from_numpy(f) for f in _tick_fields(9))
+    params = _tick_params(0.5)
+    before = spk.sor_iterations_psi.launches
+    for n_iters in (1, 2, 3):
+        got = spk.sor_iterations_psi(duvw.clone(), base, sj, params, n_iters,
+                                     torch.empty_like(duvw))
+        want = spk.sor_iterations_psi_plain(duvw.clone(), base, sj, params,
+                                            n_iters)
+        assert torch.equal(got, want)
+        assert torch.equal(got[:, 0], duvw[:, 0])
+        assert torch.equal(got[:, :, :, -1], duvw[:, :, :, -1])
+    J, weight, u, v, w = _inputs(SHAPE, seed=10)
+    _port(J, weight, u, v, w, ALPHA, [0.45], 0.5, H, 4, 2)
+    assert spk.sor_iterations_psi.launches == before
 
 
 def test_solver_has_no_unported_branch():
@@ -172,3 +242,28 @@ def test_halfsweeps_match_pallas_interpret():
         np.testing.assert_allclose(got[:, 1:-1, 1:-1, 1:-1].numpy(),
                                    np.stack(want)[:, 1:-1, 1:-1, 1:-1],
                                    rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+def test_tick_block_matches_pallas_interpret(n_iters):
+    """One tick block of the kernel's plain version against the Pallas
+    tick block it replaces, sweep_iterations_pallas_psi, in interpret mode,
+    from non-zero increments on the odd grid."""
+    from flowreg3d_tpu.core.solver_pallas import sweep_iterations_pallas_psi
+
+    duvw, base, sj = _tick_fields(11)
+    params = _tick_params(0.5)
+    hz, hy, hx = H
+    pallas_params = jnp.asarray(params[5:] + (0.5,) + params[2:5],
+                                jnp.float32)
+    want = sweep_iterations_pallas_psi(
+        *(jnp.asarray(f) for f in (*duvw, *base)),
+        tuple(jnp.asarray(f) for f in sj), pallas_params, n_iters,
+        interpret=True)
+    got = spk.sor_iterations_psi(torch.from_numpy(duvw),
+                                 torch.from_numpy(base),
+                                 torch.from_numpy(sj), params, n_iters)
+    np.testing.assert_allclose(got[:, 1:-1, 1:-1, 1:-1].numpy(),
+                               np.stack(want)[:, 1:-1, 1:-1, 1:-1],
+                               rtol=2e-5, atol=2e-5)
