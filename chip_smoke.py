@@ -33,14 +33,19 @@ Phases:
      step against the three-kernel loop it replaced;
   3. the canonical motion-correction step (64x512x512, bench.py's pair and
      flow parameters) through get_displacement + imregister_wrapper, with
-     the kernels' launch counts, against the same step on the plain path;
-     3b. the direct API, get_displacement(fixed, moving) with its own
-     defaults (a_smooth 0.5, min_level 0: 10 levels up to 64x512x512), the
-     same way, and bit-identical to the plain path;
+     the kernels' launch counts (on the first call, the warm eager run of
+     get_displacement's CUDA graph, then one replay), against the same step
+     on the plain path; 3b. the direct API, get_displacement(fixed, moving)
+     with its own defaults (a_smooth 0.5, min_level 0: 10 levels up to
+     64x512x512), the same way, and bit-identical to the plain path;
   4. the convergent regime (alpha=1.5, min_level=0) on a shifted 32x128x128
      pair, kernel path against plain path, on the accuracy gate;
-  5. timings: per kernel launch, plain version, library call, full step;
-     5b. the warm direct-API step;
+  5. timings: per kernel launch, plain version, library call; the full
+     step with get_displacement's graph against the eager pyramid it
+     captures, at C = 1 and C = 2: flows bit-equal, warm wall medians in
+     turns, the first call's and the capture's seconds, the graph's memory,
+     no host launch by a kernel wrapper on a warm call, and the runtime's
+     launch and copy calls of one; 5b. the same for the direct-API step;
   6. the in-memory pipeline, compensate_arr_3D over a drifting T=4
      recording with the direct API's flow defaults, at the default config
      (the batched executor replaying one CUDA graph a frame, the
@@ -52,7 +57,10 @@ Phases:
      both warm volumes/s, and the download of the results through the
      pipeline's staging (pinned, then copied to pageable memory) against
      plain pageable copies; 6b. the same at OFOptions' own defaults
-     (a_smooth 1, min_level 5: the SOR tick blocks);
+     (a_smooth 1, min_level 5: the SOR tick blocks); 6d. get_displacement's
+     graph and the pipeline's frame graph cached together at the direct
+     options (a direct call, the pipeline, a direct call at C = 2), with
+     the card memory after each;
   7. the executors: T=4 canonical frames at OFOptions() defaults and at
      the direct API's options through BatchedExecutor3D (CUDA graph)
      against SequentialExecutor3D (eager), flows and registered volumes
@@ -63,9 +71,12 @@ Phases:
      batches) at the default config, kernels only: warm volumes/s (and,
      with --profile, the device's busy share);
   8. the cross-correlation prealignment pipeline (cc_initialization=True,
-     T=4, OFOptions() defaults), kernels against plain, at the pipeline's
-     bounds, with its launches (the order-1 warps of the prealignment
-     counted apart);
+     T=4, OFOptions() defaults): the batched executor replays one
+     prealignment graph and one frame graph a frame; bit-equal to the same
+     pipeline with the prealignment eager, at both use_kernels, and one
+     frame's replay to the eager prealign; kernels against plain, at the
+     pipeline's bounds, with its launches (the order-1 warps of the
+     prealignment counted apart); warm volumes/s replayed against eager;
   9. the file pipeline: phase 6c's recording written to a TIFF in a
      temporary directory and read back bit for bit (with and without the
      read-ahead reader), compensate_recording at OFOptions() defaults and
@@ -668,6 +679,79 @@ def run_step(fixed, moving, params, use_kernels):
     return flow, reg
 
 
+def eager_displacement(fixed, moving, params, use_kernels=True):
+    """The flow as get_displacement computed it before it replayed a graph:
+    the pyramid of its configuration built and run eagerly, uvw zeros and
+    the weight 1/C."""
+    import torch
+
+    from flowreg3d_tpu_torch.core import pyramid as tpyr
+
+    f, m = ((x[..., None] if x.dim() == 3 else x) for x in (fixed, moving))
+    p = DIRECT_DEFAULTS if not params else params
+    key = tpyr.pyramid_config_key(tuple(f.shape[:3]), f.shape[3],
+                                  use_kernels=use_kernels, **p)
+    uvw = torch.zeros(f.shape[:3] + (3,), device=f.device)
+    weight = torch.full(f.shape, 1.0 / f.shape[3], device=f.device)
+    return tpyr.build_pyramid(*key, device=f.device)(f, m, uvw, weight)
+
+
+def eager_step(fixed, moving, params):
+    """run_step with the eager pyramid (eager_displacement)."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+
+    flow = eager_displacement(fixed, moving, params)
+    reg = ft.imregister_wrapper(moving, flow[..., 0], flow[..., 1],
+                                flow[..., 2], fixed, "cubic",
+                                device=fixed.device)
+    torch.cuda.synchronize()
+    return flow, reg
+
+
+def runtime_calls(work):
+    """The CUDA runtime's launch and copy calls of one run of ``work``,
+    by name, as the profiler sees them on the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type != DeviceType.CUDA
+            and e.key.startswith(("cuda", "cu"))
+            and re.search("Launch|Memcpy|Memset", e.key)}
+
+
+def two_channels(x):
+    """(Z,Y,X) -> (Z,Y,X,2): the volume and its square."""
+    import torch
+
+    return torch.stack([x, x * x], dim=-1)
+
+
+def pyramid_graph(tag, n_replays, expected):
+    """The one cached get_displacement graph: ``n_replays`` replays, and
+    one replay launches ``expected`` (the step's launches less its output
+    warp)."""
+    from flowreg3d_tpu_torch.core.pyramid import pyramid_graphs
+
+    graphs = pyramid_graphs()
+    check(len(graphs) == 1, f"{tag}: {len(graphs)} get_displacement graphs")
+    graph = graphs[0]
+    want = {k: v - (k == "map_coords_f32") for k, v in expected.items()}
+    want = {k: v for k, v in want.items() if v}
+    check(graph.replays == n_replays and graph.launches == want,
+          f"{tag}: the graph holds {graph.launches} and ran {graph.replays}"
+          f" replays; want {want}, {n_replays}")
+    return graph
+
+
 def phase_canonical(card, dev):
     import torch
 
@@ -699,6 +783,9 @@ def phase_canonical(card, dev):
         check(launches[k] > 0, f"{k} was not launched on the main path")
         check(launches[k] == expected[k],
               f"{k}: {launches[k]} launches, expected {expected[k]}")
+    # the host launches are the capture's warm eager run; the flow came
+    # from one replay of get_displacement's graph
+    reps = replayed(pyramid_graph("phase 3", 1, expected))
 
     t = time.perf_counter()
     flow_p, reg_p = run_step(fixed_t, moving_t, CANONICAL, False)
@@ -727,7 +814,7 @@ def phase_canonical(card, dev):
           f"improvement {k['improvement']} vs {p['improvement']} differ > 2%")
     check(k["improvement"] > 1 and p["improvement"] > 1,
           f"no improvement: {k['improvement']}, {p['improvement']}")
-    return launches, fixed_t, moving_t, plain_s
+    return launches, reps, fixed_t, moving_t, plain_s
 
 
 def phase_convergent(card, dev):
@@ -1126,6 +1213,7 @@ def phase_direct(card, dev):
         f"expected {expected}")
     check(launches == expected, f"direct-API launches {launches} != "
           f"{expected}")
+    reps = replayed(pyramid_graph("phase 3b", 1, expected))
     t = time.perf_counter()
     flow_p, reg_p = run_step(fixed_t, moving_t, {}, False)
     plain_s = time.perf_counter() - t
@@ -1161,7 +1249,7 @@ def phase_direct(card, dev):
     check(epe <= 0.25, f"direct-API flow EPE {epe} > 0.25")
     check(bool(torch.equal(flow_k, flow_p) and torch.equal(reg_k, reg_p)),
           "direct-API step: kernel and plain paths are not bit-identical")
-    return launches, fixed_t, moving_t, plain_s
+    return launches, reps, fixed_t, moving_t, plain_s
 
 
 def recording(fixed, n_frames, seed=4, period=None):
@@ -1311,20 +1399,21 @@ def replayed(graph):
             for k in KERNEL_SYMBOLS}
 
 
-def check_device_counts(tag, work, graph):
-    """One run of ``work`` (which reuses ``graph``) under the profiler: the
+def check_device_counts(tag, work, *graphs):
+    """One run of ``work`` (which reuses ``graphs``) under the profiler: the
     kernel executions the card ran, by wrapper, must equal the wrappers'
-    host launches plus the launches the graph's replays ran."""
-    replays = graph.replays
+    host launches plus the launches the graphs' replays ran."""
+    replays = [g.replays for g in graphs]
     reset_counts()
     _, device, _ = profiled(work)
     host = read_counts()
-    n = graph.replays - replays
-    want = {k: host[k] + graph.launches.get(k, 0) * n
+    n = [g.replays - r for g, r in zip(graphs, replays)]
+    want = {k: host[k] + sum(g.launches.get(k, 0) * d
+                             for g, d in zip(graphs, n))
             for k in KERNEL_SYMBOLS}
     log(f"  {tag}: profiled warm run: {n} replays, host launches {host}, "
         f"kernel executions on the card {device}")
-    check(n > 0 and device == want, f"{tag}: the card ran {device}, the "
+    check(all(n) and device == want, f"{tag}: the card ran {device}, the "
           f"host launches and {n} replays account for {want}")
 
 
@@ -1443,6 +1532,54 @@ def phase_pipeline(card, dev, fixed, defaults=False):
     return launches, reps, PIPELINE_T / warm_s
 
 
+def phase_graphs_together(card, dev, fixed):
+    """get_displacement's graph and the pipeline's frame graph cached on the
+    card together, at the direct API's options: a direct call, then the
+    pipeline (its frame graph captured beside the pyramid's), then a direct
+    call at C = 2 (its graph captured beside the frame graph); the card
+    memory reserved after each."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.core.pyramid import pyramid_graphs
+    from flowreg3d_tpu_torch.parallel import executors as tex
+
+    log("phase 6d: get_displacement's graph and the pipeline's frame graph "
+        "on the card together, at the direct API's options")
+    frames = recording(fixed, PIPELINE_T)
+    f, m = (torch.from_numpy(a).to(dev) for a in (fixed, frames[0]))
+    tex.clear_frame_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    mem = {}
+
+    def cached(tag, n_pyramid, n_frame):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem[tag] = round((torch.cuda.memory_reserved() - base) / 2**30, 2)
+        check(len(pyramid_graphs()) == n_pyramid
+              and len(tex.frame_graphs()) == n_frame,
+              f"phase 6d, {tag}: {len(pyramid_graphs())} pyramid and "
+              f"{len(tex.frame_graphs())} frame graphs cached")
+
+    flow1 = ft.get_displacement(f, m, device=dev)
+    cached("a direct call", 1, 0)
+    _, flows, _, info = run_pipeline(frames, fixed, True, dev)
+    cached("then the pipeline", 1, 1)
+    flow2 = ft.get_displacement(two_channels(f), two_channels(m), device=dev)
+    cached("then a direct call at C = 2", 1, 1)
+    check(info == dict(resident=True, executor="batched")
+          and np.isfinite(flows).all() and bool(torch.isfinite(flow1).all())
+          and bool(torch.isfinite(flow2).all()),
+          f"phase 6d: ran {info}, or non-finite flows")
+    log(f"  GiB reserved beyond the start with both kinds of graph cached: "
+        f"{mem}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"allocated; card {card}")
+    tex.clear_frame_graphs()
+
+
 def profiled(work):
     """One run of ``work`` under the profiler: (its result, the port's
     kernel executions on the card by wrapper, the runtime's launch calls by
@@ -1495,7 +1632,7 @@ def phase_executors(card, dev, fixed):
 
         def run(ex):
             r = ex.process_batch(raw, proc, ref_raw, ref_proc, w_init,
-                                 "cubic", None, fp)
+                                 interpolation_method="cubic", flow_params=fp)
             torch.cuda.synchronize()
             return r
 
@@ -1631,8 +1768,14 @@ def phase_pipeline_long(card, dev, fixed, profile=False, n_frames=24):
 
 
 def phase_cc(card, dev, fixed):
-    """The cc prealignment pipeline at OFOptions() defaults, kernels against
-    plain; the order-1 (prealignment) warps counted apart."""
+    """The cc prealignment pipeline at OFOptions() defaults: the batched
+    executor replays a prealignment graph and a frame graph a frame; held
+    bit for bit to the same pipeline with the prealignment eager, at both
+    use_kernels, and kernels against plain; the order-1 (prealignment)
+    warps counted apart; warm volumes/s with the prealignment replayed and
+    eager, in turns."""
+    import torch
+
     from flowreg3d_tpu_torch.core.pyramid import level_schedule
     from flowreg3d_tpu_torch.ops import warp as tw
     from flowreg3d_tpu_torch.parallel import executors as tex
@@ -1654,10 +1797,11 @@ def phase_cc(card, dev, fixed):
         return sample(coeff, cz, cy, cx, order)
 
     per_solve = per_solve_launches(o, plan)
-    # from the host: no initial-w pass under cc; the capture's warm frame;
-    # 2 prealignment warps and one final warp a frame
+    # from the host: no initial-w pass under cc; the warm frames of the
+    # two captures (the prealignment's 2 order-1 warps, a solve and its
+    # warp) and one final warp a frame
     expected = dict(per_solve)
-    expected["map_coords_f32"] += 3 * T
+    expected["map_coords_f32"] += 2 + T
     tex.clear_frame_graphs()
     reset_counts()
     tw.map_coords = counted
@@ -1670,20 +1814,62 @@ def phase_cc(card, dev, fixed):
     check(info == dict(resident=False, executor="batched"),
           f"phase 8 ran {info}")
     graph = tex.frame_graphs()[0]
-    reps = replayed(graph)
+    (pre,) = tex.prealign_graphs()
+    reps = {k: v + pre.launches.get(k, 0) * pre.replays
+            for k, v in replayed(graph).items()}
     log(f"  kernel run ({first_s:.2f} s): host launches {launches} (order-1 "
-        f"prealignment warps {order1[0]}), expected {expected}; "
-        f"{graph.replays} replays ran {reps}")
-    check(launches == expected and order1[0] == 2 * T
-          and graph.replays == T,
+        f"prealignment warps called {order1[0]} times: warm run and "
+        f"capture), expected {expected}; {graph.replays} frame replays, "
+        f"{pre.replays} prealignment replays (captured in "
+        f"{pre.capture_s:.3f} s, {pre.launches} a replay) ran {reps}")
+    check(launches == expected and order1[0] == 4 and graph.replays == T
+          and pre.replays == T and pre.launches == {"map_coords_f32": 2},
           f"cc launches {launches}, order 1 {order1[0]}, replays "
-          f"{graph.replays}; want {expected}, {2 * T}, {T}")
+          f"{graph.replays} / {pre.replays}, prealignment graph "
+          f"{pre.launches}; want {expected}, 4, {T}, {T}, 2 warps")
     check_device_counts("phase 8", lambda: run_pipeline(
-        frames, fixed, True, dev, options=o), graph)
-    _, _, warm_s, _ = run_pipeline(frames, fixed, True, dev, options=o)
-    check(tex.frame_graphs() == [graph], "the warm run captured again")
+        frames, fixed, True, dev, options=o), graph, pre)
+    check(tex.frame_graphs() == [graph] and tex.prealign_graphs() == [pre],
+          "the warm run captured again")
+
+    # one frame's prealignment replayed against eager prealign, bit for bit
+    ref_t = torch.from_numpy(fixed[..., None]).to(dev)
+    frame_t = torch.from_numpy(frames[1][..., None]).to(dev)
+    w0 = torch.zeros(SHAPE + (3,), device=dev)
+    align = tex.BatchedExecutor3D(device=dev)._prealigner(
+        ref_t, w0, o.to_dict())
+    got = align(frame_t)
+    want = tex.BaseExecutor3D(device=dev)._prealigner(
+        ref_t, w0, o.to_dict())(frame_t)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "the prealignment graph differs from the eager prealign")
+    del align, got, want, ref_t, frame_t, w0
+
+    # the same pipeline with the prealignment eager: the executor's own
+    # eager body in place of its graph, for this comparison only
+    graph_align = tex.BatchedExecutor3D._align_fn
+
+    def eager_prealign(use_kernels):
+        tex.BatchedExecutor3D._align_fn = tex.BaseExecutor3D._align_fn
+        try:
+            return run_pipeline(frames, fixed, use_kernels, dev, options=o)
+        finally:
+            tex.BatchedExecutor3D._align_fn = graph_align
+
+    reg_e, flows_e, _, _ = eager_prealign(True)
     reg_p, flows_p, plain_s, _ = run_pipeline(frames, fixed, False, dev,
                                               options=o)
+    reg_pe, flows_pe, _, _ = eager_prealign(False)
+    same = {}
+    for tag, a, b in (("kernels", (reg_k, flows_k), (reg_e, flows_e)),
+                      ("plain", (reg_p, flows_p), (reg_pe, flows_pe))):
+        same[tag] = (float(np.abs(a[0] - b[0]).max()),
+                     float(np.abs(a[1] - b[1]).max()))
+        check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+              f"cc pipeline ({tag}): the replayed prealignment differs from"
+              f" the eager one, max|diff| registered, flows {same[tag]}")
+    log(f"  replayed prealignment against eager, max|diff| (registered, "
+        f"flows): {same}")
     k = frame_quality(frames, fixed, reg_k, flows_k)
     p = frame_quality(frames, fixed, reg_p, flows_p)
     log(f"  plain run {plain_s:.2f} s; kernel {k}; plain {p}; max|registered"
@@ -1692,10 +1878,20 @@ def phase_cc(card, dev, fixed):
     check_quality(k, p, "phase 8 kernel vs plain")
     check(np.array_equal(reg_k, reg_p) and np.array_equal(flows_k, flows_p),
           "cc pipeline: kernel and plain paths are not bit-identical")
-    log(f"  cc pipeline warm run: {warm_s:.3f} s, {T / warm_s:.4f} "
-        f"volumes/s; card {card}")
+    del reg_e, flows_e, reg_p, flows_p, reg_pe, flows_pe
+    warm = {"graph": [], "eager": []}
+    for _ in range(3):
+        warm["graph"].append(run_pipeline(frames, fixed, True, dev,
+                                          options=o)[2])
+        warm["eager"].append(eager_prealign(True)[2])
+    med = {k: float(np.median(v)) for k, v in warm.items()}
+    log(f"  cc pipeline warm runs in turns, prealignment replayed "
+        f"{[round(x, 3) for x in warm['graph']]} s, eager "
+        f"{[round(x, 3) for x in warm['eager']]} s: medians "
+        f"{T / med['graph']:.4f} against {T / med['eager']:.4f} volumes/s; "
+        f"card {card}")
     tex.clear_frame_graphs()
-    return launches, reps, T / warm_s
+    return launches, reps, T / med["graph"]
 
 
 class Interrupted(Exception):
@@ -2539,8 +2735,9 @@ def phase_mesh_long(card, dev, fixed, n_frames=24):
         for _ in range(2):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            ex.process_batch(raw, proc, ref_raw, ref_proc, w_init, "cubic",
-                             None, o.to_dict())
+            ex.process_batch(raw, proc, ref_raw, ref_proc, w_init,
+                             interpolation_method="cubic",
+                             flow_params=o.to_dict())
             torch.cuda.synchronize()
         ms[name] = 1e3 * (time.perf_counter() - t) / raw.shape[0]
     del raw, proc
@@ -2929,48 +3126,99 @@ def phase_motion_and_backends(card, dev, fixed):
     return counts
 
 
-def phase_direct_timing(card, fixed_t, moving_t, n=3):
-    import torch
-
-    log("phase 5b: warm direct-API step timing")
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run_step(fixed_t, moving_t, {}, True)
-        times.append(time.perf_counter() - t)
-    ms = 1e3 * float(np.median(times))
-    log(f"  direct-API step {SHAPE}: {ms:.1f} ms median of {n} warm steps "
-        f"({[round(1e3 * s, 1) for s in times]}), {1e3 / ms:.3f} volumes/s;"
-        f" card {card}")
-    return ms
+def phase_direct_timing(card, fixed_t, moving_t):
+    log("phase 5b: warm direct-API step, get_displacement's graph against "
+        "the eager pyramid")
+    return phase_step_graph(card, fixed_t, moving_t, {}, "direct-API")
 
 
-def phase_timing(card, fixed_t, moving_t, plain_s, n=3):
+def phase_timing(card, fixed_t, moving_t, plain_s):
+    log(f"phase 5: warm canonical step, get_displacement's graph against "
+        f"the eager pyramid (plain path first step {plain_s:.2f} s)")
+    return phase_step_graph(card, fixed_t, moving_t, CANONICAL, "canonical")
+
+
+def phase_step_graph(card, fixed_t, moving_t, params, tag, n=7):
+    """get_displacement's CUDA graph against the eager pyramid it captures,
+    at C = 1 and C = 2: the flows bit-equal (max |diff| 0); the first
+    call's seconds (warm eager run, capture, replay) and the capture's; the
+    card memory the cached graph holds; no kernel wrapper's host launch on
+    a warm call, and the runtime's launch and copy calls of one warm call
+    both ways; warm wall medians of the step (flow + cubic warp) both ways,
+    in turns. Returns the C = 1 graph step's median ms."""
     import torch
 
     import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.core.pyramid import pyramid_graphs
+    from flowreg3d_tpu_torch.parallel import executors as tex
 
-    log("phase 5: warm full-step timing")
-    times, pyr = [], []
-    for _ in range(n):
+    out = {}
+    for C in (2, 1):                # C = 1 stays cached, for --profile
+        f, m = ((fixed_t, moving_t) if C == 1
+                else (two_channels(fixed_t), two_channels(moving_t)))
+
+        def flow():
+            return ft.get_displacement(f, m, device=f.device, **params)
+
+        tex.clear_frame_graphs()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        base_alloc = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        flow = ft.get_displacement(fixed_t, moving_t, device=fixed_t.device,
-                                   **CANONICAL)
+        got = flow()
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ft.imregister_wrapper(moving_t, flow[..., 0], flow[..., 1],
-                              flow[..., 2], fixed_t, device=fixed_t.device)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        pyr.append(t1 - t)
-    ms = 1e3 * float(np.median(times))
-    log(f"  step {SHAPE}: {ms:.1f} ms median of {n} warm steps "
-        f"({[round(1e3 * s, 1) for s in times]}), pyramid "
-        f"{1e3 * float(np.median(pyr)):.1f} ms, {1e3 / ms:.3f} volumes/s; "
-        f"plain path first step {plain_s:.2f} s; card {card}")
-    return ms
+        first_s = time.perf_counter() - t
+        (graph,) = pyramid_graphs()
+        peak = torch.cuda.max_memory_allocated() - base_alloc
+        del got
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() - base
+        want = eager_displacement(f, m, params)
+        got = flow()
+        diff = float((got - want).abs().max())
+        check(tuple(got.shape) == tuple(f.shape[:3]) + (3,)
+              and bool(torch.isfinite(got).all()),
+              f"{tag} C={C}: flow {tuple(got.shape)}, or non-finite")
+        check(torch.equal(got, want), f"{tag} C={C}: the graph's flow is "
+              f"{diff} from the eager pyramid's")
+        del got, want
+        reset_counts()
+        flow()
+        host = read_counts()
+        check(not any(host.values()), f"{tag} C={C}: a warm call launched "
+              f"{host} from the host")
+        calls = {"graph": runtime_calls(flow),
+                 "eager": runtime_calls(
+                     lambda: eager_displacement(f, m, params))}
+        ms = {"graph": [], "eager": []}
+        for _ in range(n):
+            for way, step in (("graph", run_step), ("eager", eager_step)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if way == "graph":
+                    step(f, m, params, True)
+                else:
+                    step(f, m, params)
+                ms[way].append(1e3 * (time.perf_counter() - t))
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        log(f"  {tag} C={C}: graph flow against eager max|diff| {diff}; "
+            f"first call {first_s:.3f} s (capture {graph.capture_s:.3f} "
+            f"s), the graph holds {held / 2**30:.2f} GiB reserved (peak "
+            f"{peak / 2**30:.2f} GiB allocated in the first call), "
+            f"{graph.launches} kernel launches a replay, {graph.replays} "
+            f"replays; warm get_displacement runtime calls: graph "
+            f"{calls['graph']}, eager {calls['eager']}")
+        log(f"  {tag} step C={C}: graph {med['graph']:.2f} ms, eager "
+            f"{med['eager']:.2f} ms median of {n} warm steps in turns "
+            f"(graph {[round(x, 2) for x in ms['graph']]}, eager "
+            f"{[round(x, 2) for x in ms['eager']]}), "
+            f"{1e3 / med['graph']:.3f} against {1e3 / med['eager']:.3f} "
+            f"volumes/s; card {card}")
+        out[C] = med
+        del f, m, graph
+    return out[1]["graph"]
 
 
 def phase_profile(work, tag):
@@ -3141,8 +3389,9 @@ def executor_direct_ms(fixed, frames, dev, n=3):
     bat = tex.BatchedExecutor3D(device=dev)
 
     def run():
-        bat.process_batch(raw, proc, ref_raw, ref_proc, w_init, "cubic",
-                          None, o.to_dict())
+        bat.process_batch(raw, proc, ref_raw, ref_proc, w_init,
+                          interpolation_method="cubic",
+                          flow_params=o.to_dict())
         torch.cuda.synchronize()
 
     tex.clear_frame_graphs()
@@ -3195,14 +3444,15 @@ def main():
     phase_build(card)
     rows = phase_kernels(card, dev) + phase_psi_kernels(card, dev)
     counts, replays = {}, {}
-    counts["canonical"], fixed_t, moving_t, plain_s = phase_canonical(card,
-                                                                      dev)
+    (counts["canonical"], replays["canonical"], fixed_t, moving_t,
+     plain_s) = phase_canonical(card, dev)
     phase_convergent(card, dev)
     step_ms = phase_timing(card, fixed_t, moving_t, plain_s)
     if args.profile:
         phase_profile(lambda: run_step(fixed_t, moving_t, CANONICAL, True),
                       "step")
-    counts["direct"], fixed_t, moving_t, _ = phase_direct(card, dev)
+    (counts["direct"], replays["direct"], fixed_t, moving_t,
+     _) = phase_direct(card, dev)
     direct_ms = phase_direct_timing(card, fixed_t, moving_t)
     if args.profile:
         phase_profile(lambda: run_step(fixed_t, moving_t, {}, True),
@@ -3213,6 +3463,7 @@ def main():
         card, dev, fixed)
     (counts["pipeline_defaults"], replays["pipeline_defaults"],
      vols_defaults) = phase_pipeline(card, dev, fixed, defaults=True)
+    phase_graphs_together(card, dev, fixed)
     if args.profile:
         frames = recording(fixed, PIPELINE_T)
         for tag, defaults in (("pipeline", False),

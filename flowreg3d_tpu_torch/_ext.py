@@ -165,7 +165,7 @@ def launch_counters():
     """Every kernel wrapper by kernel name. A wrapper counts each launch of
     its kernel from the host in its ``launches`` attribute; the launches a
     CUDA-graph replay runs are counted by the graph
-    (``parallel/executors.py:FrameGraph``)."""
+    (``_graph.py:CapturedGraph``)."""
     from flowreg3d_tpu_torch.core import solver_kernel, solver_psi_kernel
     from flowreg3d_tpu_torch.ops import median_kernel, warp_kernel
 

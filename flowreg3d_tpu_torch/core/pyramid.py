@@ -9,15 +9,19 @@ median of the increments when min(level size) > 5, and a final upsample
 when min_level > 0. Each level: resize -> warp by the current flow ->
 motion tensor -> SOR solve -> median -> accumulate.
 
-The schedule is computed on the host; PyTorch runs the levels eagerly.
-With ``use_kernels=True`` every level's warp, sweeps and median go through
-the CUDA kernels on CUDA tensors (their plain versions on CPU tensors);
+The schedule is computed on the host. ``build_pyramid`` runs the levels
+eagerly; on CUDA, ``get_displacement`` replays one CUDA graph of it per
+configuration and device (``PyramidGraph``, the counterpart of the JAX
+package's ``_build_pyramid_fn``), captured on first use. With
+``use_kernels=True`` every level's warp, sweeps and median go through the
+CUDA kernels on CUDA tensors (their plain versions on CPU tensors);
 ``use_kernels=False`` runs the plain PyTorch versions on any device.
 """
 
 import numpy as np
 import torch
 
+from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch.core.motion_tensor import MOTION_TENSORS, pad_edge
 from flowreg3d_tpu_torch.core.solver import (compute_flow_level_cl,
@@ -214,6 +218,45 @@ def build_pyramid(shape, n_channels, alpha, update_lag, iterations,
     return pyramid
 
 
+class PyramidGraph(_graph.CapturedGraph):
+    """``build_pyramid(*key)`` captured as a CUDA graph on ``device``, over
+    static ``fixed``, ``moving``, ``weight`` (Z,Y,X,C) and ``uvw`` (Z,Y,X,3)
+    buffers, with ``flow`` (Z,Y,X,3) as its output. ``a_vec`` is uploaded
+    once, when the pyramid is built."""
+
+    def __init__(self, key, device):
+        shape, C, dtype = key[0], key[1], getattr(torch, key[11])
+        self.pyramid = build_pyramid(*key, device=device)
+        self.fixed, self.moving, self.weight = (
+            torch.zeros(shape + (C,), dtype=dtype, device=device)
+            for _ in range(3))
+        self.uvw = torch.zeros(shape + (3,), dtype=dtype, device=device)
+        super().__init__(device)
+        self.flow = self.outputs
+
+    def _body(self):
+        return self.pyramid(self.fixed, self.moving, self.uvw, self.weight)
+
+    def run(self, fixed, moving, uvw, weight):
+        """Copy the inputs in (``uvw`` None: zeros), replay, and return a
+        copy of the flow: the next call overwrites the static one."""
+        with torch.cuda.device(self.device):
+            self.fixed.copy_(fixed)
+            self.moving.copy_(moving)
+            if uvw is None:
+                self.uvw.zero_()
+            else:
+                self.uvw.copy_(uvw)
+            self.weight.copy_(weight)
+            self.replay()
+            return self.flow.clone()
+
+
+def pyramid_graphs():
+    """The cached ``get_displacement`` graphs (at most one a device)."""
+    return _graph.graphs("pyramid")
+
+
 def get_displacement(fixed, moving, alpha=(2.0, 2.0, 2.0), update_lag=10,
                      iterations=20, min_level=0, levels=50, eta=0.8,
                      a_smooth=0.5, a_data=0.45, const_assumption="gc",
@@ -224,6 +267,11 @@ def get_displacement(fixed, moving, alpha=(2.0, 2.0, 2.0), update_lag=10,
     fixed/moving: (Z,Y,X) or (Z,Y,X,C) arrays or tensors. ``device`` None
     means 'cuda' and raises without CUDA; ``device='cpu'`` runs the plain
     PyTorch path. ``use_kernels=False`` runs the plain path on any device.
+    On CUDA the pyramid runs as one CUDA graph per configuration
+    (``pyramid_config_key``) and device, captured on the first call and
+    replayed by the next ones; a call with another configuration replaces
+    it (``parallel.executors.clear_frame_graphs`` frees it). The flow
+    returned is the caller's own tensor.
     """
     dev = resolve_device(device)
     fixed = torch.as_tensor(fixed).to(device=dev, dtype=dtype)
@@ -232,12 +280,16 @@ def get_displacement(fixed, moving, alpha=(2.0, 2.0, 2.0), update_lag=10,
         fixed = fixed[..., None]
         moving = moving[..., None]
     p, m, n, n_channels = fixed.shape
-    if uvw is None:
-        uvw = torch.zeros((p, m, n, 3), dtype=dtype, device=dev)
-    else:
+    if uvw is not None:
         uvw = torch.as_tensor(uvw).to(device=dev, dtype=dtype)
     weight = _normalize_weight(weight, (p, m, n), n_channels, dtype, dev)
     key = pyramid_config_key(
         (p, m, n), n_channels, alpha, update_lag, iterations, min_level,
         levels, eta, a_smooth, a_data, const_assumption, dtype, use_kernels)
+    if dev.type == "cuda":
+        graph = _graph.cached("pyramid", key, dev,
+                              lambda: PyramidGraph(key, dev))
+        return graph.run(fixed, moving, uvw, weight)
+    if uvw is None:
+        uvw = torch.zeros((p, m, n, 3), dtype=dtype, device=dev)
     return build_pyramid(*key, device=dev)(fixed, moving, uvw, weight)

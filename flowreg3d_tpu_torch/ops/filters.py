@@ -8,8 +8,9 @@ Counterpart of ``flowreg3d_tpu/ops/filters.py``:
   (Z,Y,X,C) or (T,Z,Y,X,C): per channel, separable along (t,)z,y,x with
   sigma given as [sx,sy,sz,st] (or (C,4)), taps of
   ``scipy.ndimage.gaussian_filter1d`` (truncate 4.0), boundary numpy
-  'symmetric' (the edge sample repeated, scipy's 'reflect'). The temporal
-  axis is filtered within the batch;
+  'symmetric' by default (the edge sample repeated, scipy's 'reflect'), or
+  any of the ``jnp.pad`` modes in ``PAD_MODES``. The temporal axis is
+  filtered within the batch;
 - ``median_filter_5x5x5``: the exact 5^3 median, plain PyTorch;
 - ``StreamingTemporalGaussian`` / ``gaussian_filter_1d_half_kernel``: a
   causal half-Gaussian over a stream of frames, host numpy float64 (the
@@ -59,50 +60,85 @@ def _gauss_kernel_np(sigma: float, truncate: float) -> np.ndarray:
     return k / k.sum()
 
 
-def symmetric_pad_index(n, r, device=None):
-    """Source indices of numpy's 'symmetric' pad by ``r`` on both sides of an
-    axis of length ``n`` (the edge sample repeated; any ``r``)."""
-    i = torch.arange(-r, n + r, device=device) % (2 * n)
-    return torch.where(i >= n, 2 * n - 1 - i, i)
+# the jnp.pad / numpy.pad modes the filters take
+PAD_MODES = ("symmetric", "reflect", "edge", "constant", "wrap")
 
 
-def _conv1d_axis(vol, taps, axis):
+def pad_index(n, r, mode="symmetric", device=None):
+    """Source indices of ``numpy.pad(x, r, mode)`` along an axis of length
+    ``n`` (any ``r``). For 'constant' the index ``n`` stands for the zero
+    sample, which the caller appends."""
+    i = torch.arange(-r, n + r, device=device)
+    if mode == "symmetric":                   # the edge sample repeated
+        i = i % (2 * n)
+        return torch.where(i >= n, 2 * n - 1 - i, i)
+    if mode == "reflect":                     # mirrored about the edge
+        if n == 1:
+            return torch.zeros_like(i)
+        i = i % (2 * n - 2)
+        return torch.where(i >= n, 2 * n - 2 - i, i)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    if mode == "wrap":
+        return i % n
+    if mode == "constant":
+        return torch.where((i >= 0) & (i < n), i, torch.full_like(i, n))
+    raise _unsupported(mode)
+
+
+def _unsupported(mode):
+    return ValueError(f"unsupported pad mode {mode!r}; supported: "
+                      f"{', '.join(PAD_MODES)}")
+
+
+def _conv1d_axis(vol, taps, axis, pad_mode="symmetric"):
     """Convolution with the symmetric 1D ``taps`` along ``axis``, boundary
-    'symmetric', as a weighted sum of shifted slices."""
+    padded as ``numpy.pad(mode=pad_mode)``, as a weighted sum of shifted
+    slices."""
     t = np.float64 if vol.dtype == torch.float64 else np.float32
     k = [float(v) for v in np.asarray(taps, t)]
     if len(k) == 1:
         return vol * k[0]
     r = len(k) // 2
     n = vol.shape[axis]
-    xp = vol.index_select(axis, symmetric_pad_index(n, r, vol.device))
+    idx = pad_index(n, r, pad_mode, vol.device)
+    if pad_mode == "constant":
+        vol = torch.cat([vol, torch.zeros_like(vol.narrow(axis, 0, 1))],
+                        dim=axis)
+    xp = vol.index_select(axis, idx)
     out = xp.narrow(axis, 0, n) * k[0]
     for j in range(1, len(k)):
         out = out + xp.narrow(axis, j, n) * k[j]
     return out
 
 
-def gaussian_filter_3d(vol, sigma_axes, truncate=4.0):
-    """Separable Gaussian over the leading ``len(sigma_axes)`` axes."""
+def gaussian_filter_3d(vol, sigma_zyx, truncate=4.0, pad_mode="symmetric"):
+    """Separable Gaussian over the leading ``len(sigma_zyx)`` axes, boundary
+    ``numpy.pad(mode=pad_mode)``, one of ``PAD_MODES``."""
+    if pad_mode not in PAD_MODES:
+        raise _unsupported(pad_mode)
     out = vol
-    for axis, s in enumerate(sigma_axes):
+    for axis, s in enumerate(sigma_zyx):
         if s and s > 0:
             out = _conv1d_axis(out, _gauss_kernel_np(float(s),
-                                                     float(truncate)), axis)
+                                                     float(truncate)),
+                               axis, pad_mode)
     return out
 
 
-def apply_gaussian_filter(arr, sigma, truncate=4.0):
+def apply_gaussian_filter(arr, sigma, mode="symmetric", truncate=4.0):
     """MATLAB-order Gaussian of (Z,Y,X,C) or (T,Z,Y,X,C).
 
     ``sigma``: (4,) = [sx,sy,sz,st] for all channels, or (C,4) per channel.
     Only the MATLAB-order lengths are reversed to the array's axes: 3 on
     4-D input, 4 on 5-D input; any other length applies as given, from the
-    leading axis, as in the JAX package.
+    leading axis, as in the JAX package. ``mode``: the boundary, a
+    ``numpy.pad`` mode of ``PAD_MODES`` (scipy's 'reflect' is 'symmetric').
     """
     sigma = np.asarray(sigma, dtype=np.float64)
     if arr.dim() not in (4, 5):
-        return gaussian_filter_3d(arr, tuple(np.atleast_1d(sigma)), truncate)
+        return gaussian_filter_3d(arr, tuple(np.atleast_1d(sigma)), truncate,
+                                  mode)
     chans = []
     for c in range(arr.shape[-1]):
         s = sigma[min(c, len(sigma) - 1)] if sigma.ndim == 2 else sigma
@@ -110,7 +146,8 @@ def apply_gaussian_filter(arr, sigma, truncate=4.0):
             s = s[:3]
         if len(s) == arr.dim() - 1:
             s = s[::-1]
-        chans.append(gaussian_filter_3d(arr[..., c], tuple(s), truncate))
+        chans.append(gaussian_filter_3d(arr[..., c], tuple(s), truncate,
+                                        mode))
     return torch.stack(chans, dim=-1)
 
 

@@ -49,11 +49,13 @@ def _prefilter_matrix(n, dtype, device):
     return torch.as_tensor(_bspline_prefilter_mat_np(n), dtype=dtype).to(device)
 
 
-def bspline_prefilter(vol):
-    """Extended spline coefficients of a (Z,Y,X) volume -> (Z+3, Y+3, X+3).
+def bspline_prefilter(vol, dtype=None):
+    """Extended spline coefficients of a (Z,Y,X) volume -> (Z+3, Y+3, X+3),
+    computed and returned in ``dtype`` (None: the volume's).
 
     Index [i+1] along each axis holds the coefficient for tap position i.
     """
+    vol = vol.to(dtype or vol.dtype)
     Z, Y, X = vol.shape
     pz, py, px = (_prefilter_matrix(n, vol.dtype, vol.device)
                   for n in (Z, Y, X))

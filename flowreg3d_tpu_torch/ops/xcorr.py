@@ -107,14 +107,19 @@ def _disambiguate(ref, mov, shift):
     H, W = ref.shape
     cr = torch.stack([shift[0] % H, (shift[0] % H) - H])
     cc = torch.stack([shift[1] % W, (shift[1] % W) - W])
-    cand_r = cr[[0, 0, 1, 1]]
-    cand_c = cc[[0, 1, 0, 1]]
+    # (r0, r0, r1, r1) and (c0, c1, c0, c1) by views: an index list would
+    # be uploaded from the host, which a CUDA-graph capture refuses
+    cand_r = cr[:, None].expand(2, 2).reshape(4)
+    cand_c = cc[None, :].expand(2, 2).reshape(4)
     scores = torch.stack([
         _overlap_corr(ref, mov, torch.round(cand_r[k]).to(torch.int64),
                       torch.round(cand_c[k]).to(torch.int64))
         for k in range(4)])
-    best = torch.argmax(scores)
-    return torch.stack([cand_r[best], cand_c[best]])
+    # gathered at a one-element index: a 0-d index tensor would be read on
+    # the host
+    best = torch.argmax(scores).reshape(1)
+    return torch.cat([cand_r.index_select(0, best),
+                      cand_c.index_select(0, best)])
 
 
 def phase_xcorr_shift(ref, mov, upsample_factor=1, normalization="phase",

@@ -33,9 +33,15 @@ cross-correlation prealignment) and four executors:
   those frames.
 
 Per frame: the flow from the port's pyramid (``core/pyramid.build_pyramid``),
-then the warp of the raw frame onto the reference. A flow backend
-(``process_batch(..., get_displacement_func=...)``) replaces the pyramid in
-every executor with the base class's eager per-frame loop, as in JAX.
+then the warp of the raw frame onto the reference. Under
+``cc_initialization`` each frame is first prealigned (``prealign``); the
+batched and mesh executors replay that on CUDA too, one ``PrealignGraph``
+per (shape, channels, ``cc_hw``, ``cc_up``, weight vector, ``use_kernels``)
+and device (the JAX package's ``_jit_prealign_single``). The graphs and
+their cache are ``_graph.py``'s; ``clear_frame_graphs`` frees them all. A
+flow backend (``process_batch(..., get_displacement_func=...)``) replaces
+the pyramid in every executor with the base class's eager per-frame loop,
+as in JAX.
 Inputs are uploaded once and every result stays on the executor's device;
 the caller downloads.
 ``use_kernels=True`` runs the CUDA kernels on CUDA tensors (the JAX
@@ -45,12 +51,10 @@ loop. ``get_executor(None)`` picks ``mesh`` when more than one card is
 visible, else ``batched``, as JAX does.
 """
 
-import time
-
 import numpy as np
 import torch
 
-from flowreg3d_tpu_torch import _ext
+from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch.core.pyramid import build_pyramid, pyramid_config_key
 from flowreg3d_tpu_torch.ops.warp import warp
@@ -114,25 +118,19 @@ def prealign(frame_proc, ref_proc, w_init, weight_vec, cc_hw, cc_up,
     return aligned, w_combined
 
 
-class FrameGraph:
+class FrameGraph(_graph.CapturedGraph):
     """One frame's pyramid and raw-frame warp, captured as a CUDA graph.
 
     Static buffers hold the frame (raw and preprocessed), its initial flow
     and the reference (raw, preprocessed, weight); ``run`` copies one
     frame in, replays the graph and copies the flow and the registered
-    frame out, all on the current stream. The capture follows PyTorch's
-    recipe: one warm eager run on a side stream first (it builds the kernel
-    library and the cached device tables that a capture may not upload),
-    then the capture. The kernel wrappers count only host launches: the
-    warm run counts, the capture is taken back out, and a replay counts
-    nothing there. ``launches`` holds the kernel launches of one replay by
-    wrapper name and ``replays`` how often the graph ran, so the kernels a
-    replay ran are ``launches`` times ``replays``.
+    frame out, all on the current stream. The capture, its launch counts
+    and its cache are ``_graph.py``'s.
     """
 
     def __init__(self, key, order, device):
         shape, C, dtype = key[0], key[1], getattr(torch, key[11])
-        self.key, self.order, self.device = key, order, device
+        self.key, self.order = key, order
         self.use_kernels = key[12]
         self.pyramid = build_pyramid(*key, device=device)
 
@@ -141,27 +139,8 @@ class FrameGraph:
 
         self.ref_raw, self.ref_proc, self.weight = buf(C), buf(C), buf(C)
         self.raw, self.proc, self.uvw = buf(C), buf(C), buf(3)
-        self.replays = 0
-        t = time.perf_counter()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._body()
-        torch.cuda.current_stream(device).wait_stream(side)
-        counters = _ext.launch_counters()
-        before = {k: fn.launches for k, fn in counters.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        # captured on a stream of the graph's own device: torch.cuda.graph's
-        # shared default stream lives on the device current at its first use
-        with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(device)):
-            self.flow, self.reg = self._body()
-        self.launches = {}
-        for k, fn in counters.items():
-            if fn.launches != before[k]:
-                self.launches[k] = fn.launches - before[k]
-            fn.launches = before[k]
-        torch.cuda.synchronize(device)
-        self.capture_s = time.perf_counter() - t
+        super().__init__(device)
+        self.flow, self.reg = self.outputs
 
     def _body(self):
         flow = self.pyramid(self.ref_proc, self.proc, self.uvw, self.weight)
@@ -178,41 +157,69 @@ class FrameGraph:
         self.raw.copy_(raw)
         self.proc.copy_(proc)
         self.uvw.copy_(uvw)
-        self.graph.replay()
+        self.replay()
         reg_out.copy_(self.reg)
         flow_out.copy_(self.flow)
-        self.replays += 1
 
 
-# the last captured graph of each device, by (config key, interpolation,
-# device). A graph holds its private memory pool (1.55 GiB at OFOptions()
-# defaults and 7.43 GiB at the direct API's options at 64x512x512,
-# PERF.md), so only one is kept a device: a repeated call reuses it,
-# another configuration on that device replaces it, and
-# ``clear_frame_graphs`` frees them all.
-_GRAPHS = {}
+class PrealignGraph(_graph.CapturedGraph):
+    """``prealign`` of one frame captured as a CUDA graph (the counterpart of
+    the JAX ``_jit_prealign_single``): static buffers for the frame, the
+    reference, ``w_init`` and the channel weights (when given); ``run``
+    copies a frame in, replays and returns copies of (aligned,
+    w_combined)."""
+
+    def __init__(self, key, device):
+        shape, C, dtype_name, self.cc_hw, self.cc_up, n_w, use_kernels = key
+        dtype = getattr(torch, dtype_name)
+        self.use_kernels = use_kernels
+        self.frame, self.ref = (torch.zeros(shape + (C,), dtype=dtype,
+                                            device=device) for _ in range(2))
+        self.w_init = torch.zeros(shape + (3,), dtype=dtype, device=device)
+        self.wvec = (None if n_w is None
+                     else torch.ones(n_w, dtype=torch.float32, device=device))
+        super().__init__(device)
+        self.aligned, self.combined = self.outputs
+
+    def _body(self):
+        return prealign(self.frame, self.ref, self.w_init, self.wvec,
+                        self.cc_hw, self.cc_up, self.use_kernels)
+
+    def set_reference(self, ref_proc, w_init, wvec):
+        self.ref.copy_(ref_proc)
+        self.w_init.copy_(w_init)
+        if wvec is not None:
+            self.wvec.copy_(wvec)
+
+    def run(self, frame):
+        with torch.cuda.device(self.device):
+            self.frame.copy_(frame)
+            self.replay()
+            return self.aligned.clone(), self.combined.clone()
 
 
 def frame_graph(key, order, device):
     """The cached ``FrameGraph`` of a configuration on ``device``, captured
-    on first use (dropping that device's graph of any other configuration
-    first)."""
-    k = (key, order, device)
-    if k not in _GRAPHS:
-        for other in [g for g in _GRAPHS if g[2] == device]:
-            del _GRAPHS[other]
-        _GRAPHS[k] = FrameGraph(key, order, device)
-    return _GRAPHS[k]
+    on first use (dropping that device's frame graph of any other
+    configuration first)."""
+    return _graph.cached("frame", (key, order), device,
+                         lambda: FrameGraph(key, order, device))
 
 
 def frame_graphs():
-    """The captured graphs (at most one a device)."""
-    return list(_GRAPHS.values())
+    """The captured frame graphs (at most one a device)."""
+    return _graph.graphs("frame")
+
+
+def prealign_graphs():
+    """The captured prealignment graphs (at most one a device)."""
+    return _graph.graphs("prealign")
 
 
 def clear_frame_graphs():
-    """Drop every captured graph and its memory pool."""
-    _GRAPHS.clear()
+    """Drop every captured graph and its memory pool: the frames', the
+    prealignment's and ``get_displacement``'s."""
+    _graph.clear()
 
 
 class BaseExecutor3D:
@@ -225,8 +232,17 @@ class BaseExecutor3D:
         self.device = resolve_device(device)
         self.use_kernels = bool(use_kernels)
 
+    def setup(self):
+        return self
+
     def cleanup(self):
         pass
+
+    def __enter__(self):
+        return self.setup()
+
+    def __exit__(self, *exc):
+        self.cleanup()
 
     @classmethod
     def register(cls):
@@ -258,27 +274,29 @@ class BaseExecutor3D:
         w = np.broadcast_to(w, (Z, Y, X, C)).copy()
         return torch.from_numpy(w).to(device=self.device, dtype=self.dtype)
 
-    @staticmethod
-    def _cc_params(flow_params):
+    def _prealigner(self, ref_proc, w_init, flow_params):
+        """``align(frame_proc) -> (aligned, w_combined)``: ``prealign`` of
+        one frame against ``ref_proc`` from ``w_init``, eager here."""
         cc_hw = flow_params.get("cc_hw", 256)
         if isinstance(cc_hw, int):
             cc_hw = (cc_hw, cc_hw)
+        cc_hw, cc_up = tuple(cc_hw), int(flow_params.get("cc_up", 10))
         weight = flow_params.get("weight")
-        wvec = None
+        wv = None
         if weight is not None and np.ndim(weight) == 1:
-            wvec = np.asarray(weight, np.float32).reshape(-1)
-        return tuple(cc_hw), int(flow_params.get("cc_up", 10)), wvec
+            wv = torch.from_numpy(np.asarray(weight, np.float32).reshape(-1))
+            wv = wv.to(self.device)
+        return self._align_fn(ref_proc, w_init, wv, cc_hw, cc_up)
+
+    def _align_fn(self, ref_proc, w_init, wv, cc_hw, cc_up):
+        return lambda frame: prealign(frame, ref_proc, w_init, wv, cc_hw,
+                                      cc_up, self.use_kernels)
 
     def _prealign_frames(self, batch_proc, ref_proc, w_init, flow_params):
         """Prealign every frame; returns (aligned (T,Z,Y,X,C), w_combined
-        (T,Z,Y,X,3)) on the device. Eager per frame in every executor: its
-        few launches are small next to a pyramid's."""
-        cc_hw, cc_up, wvec = self._cc_params(flow_params)
-        wv = (None if wvec is None
-              else torch.from_numpy(wvec).to(self.device))
-        outs = [prealign(batch_proc[t], ref_proc, w_init, wv, cc_hw, cc_up,
-                         self.use_kernels)
-                for t in range(batch_proc.shape[0])]
+        (T,Z,Y,X,3)) on the device."""
+        align = self._prealigner(ref_proc, w_init, flow_params)
+        outs = [align(batch_proc[t]) for t in range(batch_proc.shape[0])]
         return (torch.stack([a for a, _ in outs]),
                 torch.stack([c for _, c in outs]))
 
@@ -302,9 +320,9 @@ class BaseExecutor3D:
             progress_callback))]
 
     def process_batch(self, batch, batch_proc, reference_raw, reference_proc,
-                      w_init, interpolation_method="cubic",
-                      progress_callback=None, flow_params=None,
-                      get_displacement_func=None, imregister_func=None):
+                      w_init, get_displacement_func=None, imregister_func=None,
+                      interpolation_method="cubic", progress_callback=None,
+                      flow_params=None):
         """Register a batch: returns (registered (T,Z,Y,X,C), flows
         (T,Z,Y,X,3)), float tensors on the executor's device. With
         ``flow_params['cc_initialization']`` each frame is first prealigned
@@ -366,9 +384,7 @@ class BaseExecutor3D:
                      if k not in self._PIPELINE_KEYS}
         use_cc = bool(flow_params.get("cc_initialization", False))
         if use_cc:
-            cc_hw, cc_up, wvec = self._cc_params(flow_params)
-            wv = (None if wvec is None
-                  else torch.from_numpy(wvec).to(self.device))
+            align = self._prealigner(ref_proc, w_init, flow_params)
 
         def host(x):
             return x.detach().cpu().numpy()
@@ -380,9 +396,7 @@ class BaseExecutor3D:
         for t in range(batch.shape[0]):
             frame_proc = batch_proc[t]
             if use_cc:
-                frame_proc, base_flow = prealign(
-                    batch_proc[t], ref_proc, w_init, wv, cc_hw, cc_up,
-                    self.use_kernels)
+                frame_proc, base_flow = align(batch_proc[t])
             flow = self._on_device(np.asarray(get_displacement_func(
                 ref_proc_h, host(frame_proc), uvw=uvw_h, **of_params),
                 np.float32), 4)
@@ -481,6 +495,18 @@ class BatchedExecutor3D(BaseExecutor3D):
                     if progress_callback:
                         progress_callback(1)
         return [(*s["range"], s["regs"], s["flows"]) for s in shards]
+
+    def _align_fn(self, ref_proc, w_init, wv, cc_hw, cc_up):
+        """On CUDA, a replay of the cached ``PrealignGraph`` a frame."""
+        if self.device.type != "cuda":
+            return super()._align_fn(ref_proc, w_init, wv, cc_hw, cc_up)
+        key = (tuple(ref_proc.shape[:3]), ref_proc.shape[3],
+               str(ref_proc.dtype).removeprefix("torch."), cc_hw, cc_up,
+               None if wv is None else wv.numel(), self.use_kernels)
+        graph = _graph.cached("prealign", key, self.device,
+                              lambda: PrealignGraph(key, self.device))
+        graph.set_reference(ref_proc, w_init, wv)
+        return graph.run
 
     def _frame_fn(self, key, order, dev, ref_raw, ref_proc, weight):
         """One frame on ``dev``: its device's graph on CUDA, else eager."""

@@ -64,12 +64,12 @@ def shard_batch(arr, devices):
     return out
 
 
-def replicate(x, devices):
-    """One copy of the tensor ``x`` on each distinct device of ``devices``
-    (``peer_copy``): a dict device -> tensor, ``x`` itself on its own
+def replicate(arr, devices):
+    """One copy of the tensor ``arr`` on each distinct device of ``devices``
+    (``peer_copy``): a dict device -> tensor, ``arr`` itself on its own
     device (read only)."""
-    return {dev: x if x.device == dev
-            else peer_copy(torch.empty_like(x, device=dev), x)
+    return {dev: arr if arr.device == dev
+            else peer_copy(torch.empty_like(arr, device=dev), arr)
             for dev in dict.fromkeys(devices)}
 
 

@@ -258,9 +258,9 @@ class BatchMotionCorrector:
             cb = lambda n: self._notify(n, task_id)  # noqa: E731
         return self.executor.process_batch(
             batch, batch_proc, self._reference_raw_d, self.reference_proc,
-            w_init, self.options.interpolation_method.value, cb,
-            self._flow_params(),
-            get_displacement_func=self._resolve_flow_backend())
+            w_init, get_displacement_func=self._resolve_flow_backend(),
+            interpolation_method=self.options.interpolation_method.value,
+            progress_callback=cb, flow_params=self._flow_params())
 
     def _resolve_flow_backend(self):
         """The callable replacing the variational solver, or None. A named

@@ -192,6 +192,10 @@ class ResidentPipeline:
         self.staging = staging
         self._stagings = {executor.device: staging}
 
+    def ref_proc_np(self):
+        """Host float64 copy of the (possibly updated) processed reference."""
+        return self.ref_proc_d.detach().cpu().numpy().astype(np.float64)
+
     def _staging_of(self, device):
         if device not in self._stagings:
             self._stagings[device] = HostStaging(device.type == "cuda")

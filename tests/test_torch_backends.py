@@ -355,8 +355,7 @@ def test_executor_custom_imregister_func_matches_jax(video, pair):
         *args, get_displacement_func=_constant_flow,
         imregister_func=shifted_copy, interpolation_method="linear")
     got = SequentialExecutor3D(device="cpu").process_batch(
-        *args, "linear", None, None, get_displacement_func=_constant_flow,
-        imregister_func=shifted_copy)
+        *args, _constant_flow, shifted_copy, "linear")
     assert calls == ["linear"] * 4
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape

@@ -15,7 +15,13 @@ reused; one Z-sharded frame over two shards of the one card
 ([cuda:0, cuda:0]), the slab kernels against their plain versions, bit for
 bit, with each slab kernel launched; the psi tick block
 (sor_iterations_psi_f32) in both modes against its plain loop, bit for bit,
-for odd and even counts, its plan by size, and its replay in a CUDA graph.
+for odd and even counts, its plan by size, and its replay in a CUDA graph;
+``get_displacement``'s graph: a replay bit-equal to the eager pyramid, no
+host launch on a warm call, each call's flow the caller's own, ``uvw=None``
+after a ``uvw`` starting from zeros, a weight vector and a weight volume,
+another configuration replacing the graph; the cc prealignment's graph
+bit-equal to the eager ``prealign``, and the cc batch through the batched
+executor bit-equal to the sequential one, at both ``use_kernels``.
 """
 
 import numpy as np
@@ -57,10 +63,10 @@ def test_graph_replay_equals_sequential(card, a_smooth):
     fp = dict(FLOW, a_smooth=a_smooth, weight=[0.5, 0.5])
     w_init = np.full(ref.shape[:3] + (3,), 0.25, np.float32)
     seq = tex.SequentialExecutor3D().process_batch(
-        video, video, ref, ref, w_init, "cubic", None, fp)
+        video, video, ref, ref, w_init, flow_params=fp)
     tex.clear_frame_graphs()
     bat = tex.BatchedExecutor3D().process_batch(
-        video, video, ref, ref, w_init, "cubic", None, fp)
+        video, video, ref, ref, w_init, flow_params=fp)
     graphs = tex.frame_graphs()
     assert len(graphs) == 1 and graphs[0].replays == video.shape[0]
     plan, _, _ = level_schedule(ref.shape[:3], FLOW["eta"], FLOW["levels"],
@@ -86,8 +92,8 @@ def test_capture_with_host_sync_raises(card, monkeypatch):
     tex.clear_frame_graphs()
     with pytest.raises(RuntimeError):
         tex.BatchedExecutor3D().process_batch(
-            video, video, ref, ref, np.zeros(ref.shape[:3] + (3,)), "cubic",
-            None, dict(FLOW, a_smooth=1.0))
+            video, video, ref, ref, np.zeros(ref.shape[:3] + (3,)),
+            flow_params=dict(FLOW, a_smooth=1.0))
     tex.clear_frame_graphs()
 
 
@@ -186,3 +192,95 @@ def test_psi_tick_block_plan_and_graph(card):
         want = spk.sor_iterations_psi_plain(duvw.clone(), base, sj,
                                             TICK_PARAMS, 3)
         assert torch.equal(a, want)
+
+
+def _eager_flow(fixed, moving, uvw, weight, **kw):
+    """The eager pyramid of ``get_displacement``'s configuration."""
+    from flowreg3d_tpu_torch.core import pyramid as tpyr
+
+    key = tpyr.pyramid_config_key(tuple(fixed.shape[:3]), fixed.shape[3],
+                                  **kw)
+    return tpyr.build_pyramid(*key, device=fixed.device)(fixed, moving, uvw,
+                                                         weight)
+
+
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+def test_get_displacement_replays_its_graph(card, a_smooth):
+    from flowreg3d_tpu_torch import _ext
+    from flowreg3d_tpu_torch.core import pyramid as tpyr
+
+    video, ref = _frames(T=2, C=2)
+    fixed, moving = (torch.from_numpy(a).to(card) for a in (ref, video[1]))
+    kw = dict(FLOW, a_smooth=a_smooth)
+    half = torch.full(fixed.shape, 0.5, device=card)
+    uvw = torch.full(fixed.shape[:3] + (3,), 0.3, device=card)
+    tex.clear_frame_graphs()
+    first = tpyr.get_displacement(fixed, moving, uvw=uvw, **kw)
+    (graph,) = tpyr.pyramid_graphs()
+    assert graph.replays == 1
+    assert torch.equal(first, _eager_flow(fixed, moving, uvw, half, **kw))
+    # a warm call: one replay, no kernel launched from the host
+    kept = first.clone()
+    counters = _ext.launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    second = tpyr.get_displacement(fixed, moving, **kw)
+    assert {k: f.launches for k, f in counters.items()} == before
+    assert graph.replays == 2 and graph.launches["map_coords_f32"] > 0
+    # the caller's own tensors: the first is untouched by the second, and
+    # uvw=None after a uvw starts from zeros
+    assert second.data_ptr() != first.data_ptr()
+    assert torch.equal(first, kept)
+    assert torch.equal(second, _eager_flow(
+        fixed, moving, torch.zeros_like(uvw), half, **kw))
+    # a weight vector and the same weights as a volume
+    volume = torch.stack([torch.full(fixed.shape[:3], w, device=card)
+                          for w in (0.7, 0.3)], dim=-1)
+    want = _eager_flow(fixed, moving, torch.zeros_like(uvw), volume, **kw)
+    for weight in ([0.7, 0.3], volume):
+        assert torch.equal(
+            tpyr.get_displacement(fixed, moving, weight=weight, **kw), want)
+    assert tpyr.pyramid_graphs() == [graph] and graph.replays == 4
+    # another configuration replaces the graph
+    other = dict(kw, iterations=4)
+    got = tpyr.get_displacement(fixed, moving, **other)
+    (graph2,) = tpyr.pyramid_graphs()
+    assert graph2 is not graph and graph2.replays == 1
+    assert torch.equal(got, _eager_flow(fixed, moving, torch.zeros_like(uvw),
+                                        half, **other))
+    tex.clear_frame_graphs()
+    assert tpyr.pyramid_graphs() == []
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_prealign_graph_equals_eager(card, use_kernels):
+    video, ref = _frames(T=3, C=2, shape=(12, 40, 36))
+    frames, ref_t = (torch.from_numpy(a).to(card) for a in (video, ref))
+    w_init = torch.full(ref.shape[:3] + (3,), 0.25, device=card)
+    fp = dict(cc_hw=16, cc_up=4, weight=[0.6, 0.4])
+    wv = torch.tensor([0.6, 0.4], device=card)
+    tex.clear_frame_graphs()
+    aligned, combined = tex.BatchedExecutor3D(
+        use_kernels=use_kernels)._prealign_frames(frames, ref_t, w_init, fp)
+    (graph,) = tex.prealign_graphs()
+    assert graph.replays == 3
+    for t in range(3):
+        a, c = tex.prealign(frames[t], ref_t, w_init, wv, (16, 16), 4,
+                            use_kernels)
+        assert torch.equal(aligned[t], a) and torch.equal(combined[t], c)
+    tex.clear_frame_graphs()
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_cc_batch_replay_equals_sequential(card, use_kernels):
+    video, ref = _frames(T=3, C=1, shape=(12, 40, 36))
+    fp = dict(FLOW, a_smooth=1.0, cc_initialization=True, cc_hw=16, cc_up=4)
+    w_init = np.full(ref.shape[:3] + (3,), 0.25, np.float32)
+    seq = tex.SequentialExecutor3D(use_kernels=use_kernels).process_batch(
+        video, video, ref, ref, w_init, flow_params=fp)
+    tex.clear_frame_graphs()
+    bat = tex.BatchedExecutor3D(use_kernels=use_kernels).process_batch(
+        video, video, ref, ref, w_init, flow_params=fp)
+    assert [g.replays for g in tex.prealign_graphs()] == [3]
+    for a, b in zip(seq, bat):
+        assert torch.equal(a, b)
+    tex.clear_frame_graphs()

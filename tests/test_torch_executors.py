@@ -78,8 +78,9 @@ def test_batched_equals_sequential_bitwise(video5d, base_volume, C, T):
     for ex in (tex.SequentialExecutor3D(device="cpu"),
                tex.BatchedExecutor3D(device="cpu")):
         seen[ex.name] = []
-        out[ex.name] = ex.process_batch(video, proc, ref, ref_proc, w_init,
-                                        "cubic", seen[ex.name].append, fp)
+        out[ex.name] = ex.process_batch(
+            video, proc, ref, ref_proc, w_init, interpolation_method="cubic",
+            progress_callback=seen[ex.name].append, flow_params=fp)
     for a, b in zip(out["sequential"], out["batched"]):
         assert a.shape == b.shape and a.shape[0] == T
         assert torch.equal(a, b)
@@ -93,7 +94,8 @@ def test_batched_matches_jax_batched(video5d, base_volume):
         video, proc, ref, ref_proc, w_init, interpolation_method="cubic",
         flow_params=fp)
     reg, flow = tex.BatchedExecutor3D(device="cpu").process_batch(
-        video, proc, ref, ref_proc, w_init, "cubic", None, fp)
+        video, proc, ref, ref_proc, w_init, interpolation_method="cubic",
+        flow_params=fp)
     np.testing.assert_allclose(reg.numpy(), reg_j, rtol=0, atol=1e-4)
     np.testing.assert_allclose(flow.numpy(), flow_j, rtol=0, atol=1e-3)
 

@@ -70,9 +70,10 @@ def test_mesh_executor_equals_sequential(base_volume):
     for ex in (tex.SequentialExecutor3D(device="cpu"),
                tex.MeshExecutor3D(device="cpu", devices=SHARDS)):
         seen[ex.name] = []
-        out[ex.name] = ex.process_batch(video, proc, base_volume,
-                                        base_volume, w_init, "cubic",
-                                        seen[ex.name].append, fp)
+        out[ex.name] = ex.process_batch(
+            video, proc, base_volume, base_volume, w_init,
+            interpolation_method="cubic",
+            progress_callback=seen[ex.name].append, flow_params=fp)
     assert seen["mesh"] == [1] * 5
     assert tex.MeshExecutor3D(device="cpu", devices=SHARDS).get_info()[
         "n_devices"] == 3

@@ -176,7 +176,7 @@ def test_preprocessing_matches_jax(shape, sigma, mode, with_ref):
 def test_symmetric_padding_matches_numpy(n):
     x = np.arange(n)
     for r in (0, 1, 4, 11):
-        idx = tfilters.symmetric_pad_index(n, r).numpy()
+        idx = tfilters.pad_index(n, r).numpy()
         np.testing.assert_array_equal(x[idx], np.pad(x, r, mode="symmetric"))
 
 

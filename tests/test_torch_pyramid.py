@@ -122,3 +122,32 @@ def test_get_displacement_cpu_matches_pyramid_and_float64_runs():
                                    dtype=torch.float64, **kw)
     assert flow32.dtype == torch.float32 and flow64.dtype == torch.float64
     assert np.abs(flow32.numpy() - flow64.numpy()).max() < 1e-3
+
+
+def test_get_displacement_cpu_captures_nothing_and_matches_jax(monkeypatch):
+    """On the CPU ``get_displacement`` runs the eager pyramid: no CUDA graph
+    is made or cached, and the flow holds to JAX's ``get_displacement`` at
+    1e-4, without and with an initial flow, a weight vector and a weight
+    volume."""
+    from flowreg3d_tpu_torch import _graph
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA graph on the CPU path")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    _graph.clear()
+    rng = np.random.default_rng(3)
+    fixed, moving, _, _ = pair()
+    fixed = np.concatenate([fixed, np.sqrt(fixed)], axis=-1)
+    moving = np.concatenate([moving, np.sqrt(moving)], axis=-1)
+    uvw = (0.2 * rng.random(SHAPE + (3,))).astype(np.float32)
+    kw = dict(PARAMS, iterations=4, levels=3, a_smooth=0.5)
+    for extra in (dict(), dict(uvw=uvw, weight=[0.7, 0.3]),
+                  dict(weight=rng.random(SHAPE).astype(np.float32) + 0.5)):
+        got = tpyr.get_displacement(fixed, moving, device="cpu", **kw,
+                                    **extra)
+        want = np.asarray(jpyr.get_displacement(fixed, moving, **kw,
+                                                **extra))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    assert tpyr.pyramid_graphs() == []

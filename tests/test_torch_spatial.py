@@ -280,10 +280,10 @@ def test_halo_violation_flagged_and_recomputed(video5d, base_volume):
     w_init[..., 2] = 9.0
     ex = SpatialExecutor3D(device="cpu", devices=[CPU] * 2, halo_w=2)
     got = ex.process_batch(video5d[:2], video5d[:2], base_volume,
-                           base_volume, w_init, "cubic", None, fp)
+                           base_volume, w_init, flow_params=fp)
     want = SequentialExecutor3D(device="cpu").process_batch(
-        video5d[:2], video5d[:2], base_volume, base_volume, w_init, "cubic",
-        None, fp)
+        video5d[:2], video5d[:2], base_volume, base_volume, w_init,
+        flow_params=fp)
     assert ex.get_info()["single_device_frames"] == 2
     assert ex.get_info()["sharding"] == "z-spatial"
     for a, b in zip(got, want):
