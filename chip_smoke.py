@@ -93,14 +93,22 @@ Phases:
      versions (the full-size level in 2 slabs, a ragged level in 3 with a
      padded last slab; the whole-volume call unchanged), timed at the slab
      shape; (b) the sharded level solve, bit-identical to plain and to one
-     slab; (c) get_displacement_sharded on the canonical pair at the direct
-     API's defaults and at OFOptions() defaults (the constant half-sweep's
-     path) and on the convergent pair, kernels against plain, against the
-     single-device step (at the 40 dB gate, or where the single-device step
-     on input scaled by one ulp itself moves further, within that spread),
-     with launches, exchange copies, warm ms and peak memory; (d) the mesh
+     slab; its CUDA graph, and compute_flow_level's, against the eager
+     bodies they capture; (c) get_displacement_sharded on the canonical
+     pair at the direct API's defaults and at OFOptions() defaults (the
+     constant half-sweep's path) and on the convergent pair, kernels
+     against plain, against the single-device step (at the 40 dB gate, or
+     where the single-device step on input scaled by one ulp itself moves
+     further, within that spread), with launches, exchange copies, warm ms
+     and its CUDA graph (one a configuration and device list) against the
+     eager sharded body: bit-equal (also at C = 2 at the direct defaults),
+     first call, capture, the eager body's peak and the graph's memory a
+     card, runtime calls of a warm call, warm steps in turns; (d) the mesh
      pipeline (resident and host-staged) bit-identical to batched, and the
-     spatial pipeline against batched;
+     spatial pipeline (one frame-graph replay a frame) against batched; (f)
+     on more than one card, one CUDA graph across two cards on a toy
+     program (graph_probe; phase_across_cards runs the probe and (b), (c),
+     (d)'s spatial pipeline over every card alone);
  11. synthetic motion and flow backends at 64x512x512, the port's own
      modules: (a) the reference's example harness
      (examples/motion_correct_3d_test.py): fix_seed(1), the low_disp
@@ -116,8 +124,9 @@ Phases:
      on a 16x64x64 crop (1e-5 rigid, 1e-4 conv); (c) warp_volume_backward
      kernel against plain, resize_batch of T=4 to half size against the CPU
      (1e-5), compute_flow on a 512x512 plane at a_smooth 1 and 0.5 (a
-     0.4-voxel shift recovered to 0.15 over 80 iterations; float64 against
-     the CPU at 1e-9 over 20).
+     0.4-voxel shift recovered to 0.15 over 80 iterations; its CUDA graph
+     against the eager body, bit-equal and timed; float64 against the CPU
+     at 1e-9 over 20).
 Launch counts: every kernel wrapper counts its launches from the host (a
 capture is taken back out); a CUDA-graph replay launches its kernels
 without the wrappers, so each graph counts its replays, and the kernels
@@ -726,6 +735,85 @@ def runtime_calls(work):
             if e.device_type != DeviceType.CUDA
             and e.key.startswith(("cuda", "cu"))
             and re.search("Launch|Memcpy|Memset", e.key)}
+
+
+def sync(devices):
+    import torch
+
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def graph_against_eager(tag, card, call, eager, kind, devices,
+                        finish=None, n=5, calls=True):
+    """A compiled program's CUDA graph against the eager body it captures.
+    ``call()`` (the entry point, which replays the one cached graph of
+    ``kind``) and ``eager()`` each return a tuple of tensors; ``finish(out)``
+    is the rest of a timed step (the raw frame's warp), if any. From an
+    empty cache: the first call's seconds (warm eager run, capture, replay)
+    and the capture's; the card memory the graph holds on each device of
+    ``devices`` (reserved beyond the start, the allocator's cache emptied);
+    the outputs bit-equal; no kernel wrapper's host launch on a warm call;
+    the runtime's launch and copy calls of one warm call both ways (with
+    ``calls``: the profiler's cost grows with the eager launches); warm
+    wall medians of ``n`` steps in turns. Returns the numbers and the
+    kernel launches the graph's replays ran."""
+    import torch
+
+    from flowreg3d_tpu_torch.parallel import executors as tex
+
+    devs = list(dict.fromkeys(devices))
+    tex.clear_frame_graphs()
+    sync(devs)
+    torch.cuda.empty_cache()
+    base = {d: torch.cuda.memory_reserved(d) for d in devs}
+    t = time.perf_counter()
+    got = call()
+    sync(devs)
+    first_s = time.perf_counter() - t
+    (graph,) = tex.graphs(kind)
+    del got
+    torch.cuda.empty_cache()
+    held = {str(d): round((torch.cuda.memory_reserved(d) - base[d]) / 2**30,
+                          3) for d in devs}
+    want, got = eager(), call()
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    del got, want
+    reset_counts()
+    call()
+    host = read_counts()
+    calls = ({"graph": runtime_calls(call), "eager": runtime_calls(eager)}
+             if calls else {"graph": "not read", "eager": "not read"})
+    ms = {"graph": [], "eager": []}
+    for _ in range(n):
+        for way, fn in (("graph", call), ("eager", eager)):
+            sync(devs)
+            t = time.perf_counter()
+            out = fn()
+            if finish is not None:
+                finish(out)
+            sync(devs)
+            ms[way].append(1e3 * (time.perf_counter() - t))
+            del out
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"  {tag}: graph against eager bit-equal {same} (max|diff| {diff}); "
+        f"first call {first_s:.3f} s (capture {graph.capture_s:.3f} s); the "
+        f"graph holds {held} GiB reserved; {graph.launches} kernel launches "
+        f"and {graph.copies} copies between shards a replay; warm call's "
+        f"host launches {host}; runtime calls of a warm call: graph "
+        f"{calls['graph']}, eager {calls['eager']}")
+    log(f"  {tag}: graph {med['graph']:.2f} ms, eager {med['eager']:.2f} ms "
+        f"median of {n} warm {'steps' if finish else 'calls'} in turns "
+        f"(graph {[round(x, 2) for x in ms['graph']]}, eager "
+        f"{[round(x, 2) for x in ms['eager']]}); card {card}")
+    check(same, f"{tag}: the graph's outputs are {diff} from the eager body's")
+    check(not any(host.values()), f"{tag}: a warm call launched {host} from "
+          f"the host")
+    return dict(graph_ms=med["graph"], eager_ms=med["eager"],
+                first_s=first_s, capture_s=graph.capture_s, held_gib=held,
+                replayed=replayed(graph))
 
 
 def two_channels(x):
@@ -2314,10 +2402,14 @@ def phase_level_sharded(card, dev, devices):
     unfolded stencil (``unfolded_level``), and compute_flow_level, which
     folds the base Laplacian into the data terms, over one tick block
     (iterations = update_lag: before the data term's re-linearisation), and
-    over LEVEL_ITERATIONS within ``FOLD_GAP``."""
+    over LEVEL_ITERATIONS within ``FOLD_GAP``. Then, at both a_smooth, the
+    sharded level's graph and compute_flow_level's graph against their
+    eager bodies (``graph_against_eager``)."""
     import torch
 
-    from flowreg3d_tpu_torch.core.solver import compute_flow_level
+    from flowreg3d_tpu_torch.core.solver import (compute_flow_level,
+                                                 solve_level_cl)
+    from flowreg3d_tpu_torch.parallel import spatial as tsp
     from flowreg3d_tpu_torch.parallel.spatial import (
         compute_flow_level_sharded)
 
@@ -2377,6 +2469,26 @@ def phase_level_sharded(card, dev, devices):
               f"tick block {err_1}")
         check(gap <= FOLD_GAP, f"sharded level solve (a_smooth 1): folded "
               f"vs unfolded gap {gap} beyond {FOLD_GAP}")
+    for a_smooth in (1.0, 0.5):
+        key = tsp.level_config_key(shape, 1, kw["alpha"], kw["iterations"],
+                                   kw["update_lag"], kw["a_data"], a_smooth,
+                                   1.0, 1.0, 1.0, torch.float32, True)
+        body = tsp.build_level_sharded(key, devices)
+        graph_against_eager(
+            f"10b sharded level graph {shape} a_smooth {a_smooth} over "
+            f"{[str(d) for d in devices]}", card,
+            lambda: tsp.compute_flow_level_sharded(
+                J, weight, u, v, w, devices=devices, a_smooth=a_smooth,
+                **kw),
+            lambda: body(J, weight, u, v, w), "sharded_level", devices)
+        Jc, wc = [j.movedim(-1, 0) for j in J], weight.movedim(-1, 0)
+        graph_against_eager(
+            f"10b compute_flow_level graph {shape} a_smooth {a_smooth}", card,
+            lambda: single(a_smooth),
+            lambda: solve_level_cl(Jc, wc, u, v, w, kw["alpha"],
+                                   kw["iterations"], kw["update_lag"],
+                                   kw["a_data"], a_smooth, 1.0, 1.0, 1.0),
+            "level", [dev])
 
 
 def spatial_expected(params, n, shape):
@@ -2427,6 +2539,67 @@ def sharded_step(fixed_t, moving_t, params, devices, use_kernels):
                                 use_kernels=use_kernels)
     torch.cuda.synchronize()
     return flow, reg, bool(valid)
+
+
+def sharded_graph_against_eager(card, fixed_t, moving_t, params, devices,
+                                tag, calls=True):
+    """get_displacement_sharded's graph against the eager sharded body
+    (``build_sharded_pyramid``) it captures, timed as steps with the raw
+    frame's cubic warp (``graph_against_eager``). First, from an empty
+    cache, the eager body's peak allocation and peak reservation on each
+    card beyond what it started with; after, the bytes of the graph's
+    static input and output buffers (all on the first card). Returns
+    ``graph_against_eager``'s numbers with those."""
+    import torch
+
+    import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.core.pyramid import pyramid_config_key
+    from flowreg3d_tpu_torch.parallel import executors as tex
+    from flowreg3d_tpu_torch.parallel import spatial_pyramid as tsp
+
+    f, m = ((x[..., None] if x.dim() == 3 else x) for x in (fixed_t,
+                                                           moving_t))
+    shape, C = tuple(f.shape[:3]), f.shape[-1]
+    body = tsp.build_sharded_pyramid(
+        pyramid_config_key(shape, C, **params), devices)
+    zeros = torch.zeros(shape + (3,), device=f.device)
+    vec = torch.full((C,), 1.0 / C, device=f.device)
+
+    def warp(out):
+        flow = out[0]
+        return ft.imregister_wrapper(moving_t, flow[..., 0], flow[..., 1],
+                                     flow[..., 2], fixed_t, "cubic",
+                                     device=fixed_t.device)
+
+    devs = list(dict.fromkeys(devices))
+    tex.clear_frame_graphs()
+    sync(devs)
+    torch.cuda.empty_cache()
+    start = {d: (torch.cuda.memory_allocated(d),
+                 torch.cuda.memory_reserved(d)) for d in devs}
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    out = body(f, m, zeros, vec)
+    sync(devs)
+    peak = {str(d): round((torch.cuda.max_memory_allocated(d) - start[d][0])
+                          / 2**30, 3) for d in devs}
+    peak_reserved = {str(d): round((torch.cuda.max_memory_reserved(d)
+                                    - start[d][1]) / 2**30, 3) for d in devs}
+    del out
+    timed = graph_against_eager(
+        tag, card,
+        lambda: tsp.get_displacement_sharded(fixed_t, moving_t,
+                                             devices=devices, **params),
+        lambda: body(f, m, zeros, vec), "sharded", devices,
+        finish=warp, n=3, calls=calls)
+    (graph,) = tex.graphs("sharded")
+    static = sum(x.nbytes for x in list(graph.inputs) + list(graph.outputs))
+    timed.update(eager_peak_gib=peak, static_gib=round(static / 2**30, 3))
+    log(f"  {tag}: the eager body's peak allocation {peak} GiB a card, peak "
+        f"reservation {peak_reserved} GiB; the graph holds {timed['held_gib']} GiB reserved a card, of which its "
+        f"static input and output buffers {timed['static_gib']} GiB on "
+        f"{devices[0]}; card {card}")
+    return timed
 
 
 # input scalings by one ulp either way: the single-device path on them
@@ -2489,10 +2662,13 @@ def phase_spatial_step(card, dev, devices, tag, params, fixed_t, moving_t):
     scaled by ``SCALES``, its flow warping the same moving volume); with
     one tick block a level, the flow within ``ONE_BLOCK_EPE`` of the
     single-device flow; launches, exchange copies, warm ms and peak memory
-    beside the single-device step's."""
+    beside the single-device step's; the sharded graph against its eager
+    body (``sharded_graph_against_eager``, also at C = 2 at a_smooth 0.5).
+    Returns (host launches, launches replayed, warm graph ms)."""
     import torch
 
     import flowreg3d_tpu_torch as ft
+    from flowreg3d_tpu_torch.parallel import executors as tex
     from flowreg3d_tpu_torch.parallel.mesh import peer_copy
 
     layout = [str(d) for d in devices]
@@ -2510,7 +2686,7 @@ def phase_spatial_step(card, dev, devices, tag, params, fixed_t, moving_t):
         spreads.append(psnr(reg_s.cpu().numpy(), reg_e.cpu().numpy()))
     spread = min(spreads)
     del flow_s, flow_e, reg_e
-    torch.cuda.reset_peak_memory_stats(dev)
+    tex.clear_frame_graphs()
     expected = spatial_expected(params, len(devices), SHAPE)
     reset_counts()
     copies = peer_copy.copies
@@ -2520,7 +2696,16 @@ def phase_spatial_step(card, dev, devices, tag, params, fixed_t, moving_t):
     first_s = time.perf_counter() - t
     launches = read_counts()
     copies = peer_copy.copies - copies
-    mem_sharded = torch.cuda.max_memory_allocated(dev) - base_mem
+    # the host launches are the capture's warm eager run and the raw warp;
+    # the flow came from one replay of the sharded graph
+    (graph,) = tex.graphs("sharded")
+    want = {k: v - (k == "map_coords_f32") for k, v in expected.items()}
+    want = {k: v for k, v in want.items() if v}
+    check(graph.replays == 1 and graph.launches == want and graph.copies
+          == copies, f"10c {tag}: the graph holds {graph.launches} and "
+          f"{graph.copies} copies and ran {graph.replays} replays; want "
+          f"{want}, {copies}, 1")
+    del graph
     t = time.perf_counter()
     flow_p, reg_p, valid_p = sharded_step(fixed_t, moving_t, params, devices,
                                           False)
@@ -2528,12 +2713,15 @@ def phase_spatial_step(card, dev, devices, tag, params, fixed_t, moving_t):
     same = bool(torch.equal(flow_k, flow_p) and torch.equal(reg_k, reg_p))
     agree = psnr(reg_s.cpu().numpy(), reg_k.cpu().numpy())
     del flow_p, reg_p
-    times = []
-    for _ in range(2):
-        t = time.perf_counter()
-        sharded_step(fixed_t, moving_t, params, devices, True)
-        times.append(time.perf_counter() - t)
-    ms = 1e3 * min(times)
+    runs = {}
+    for C in ((1, 2) if params["a_smooth"] != 1.0 else (1,)):
+        f, m = ((fixed_t, moving_t) if C == 1
+                else (two_channels(fixed_t), two_channels(moving_t)))
+        runs[C] = sharded_graph_against_eager(card, f, m, params, devices,
+                                              f"10c {tag} C={C} over "
+                                              f"{layout}", calls=C == 1)
+        del f, m
+    ms = runs[1]["graph_ms"]
     bar = agreement_bar(spread)
     unregistered = psnr(reg_s.cpu().numpy(), moving_t.cpu().numpy())
     epe_1, epe_1e = one_block_epe(fixed_t, moving_t, params, devices)
@@ -2548,10 +2736,11 @@ def phase_spatial_step(card, dev, devices, tag, params, fixed_t, moving_t):
         f"launches {launches} "
         f"(expected "
         f"{expected}); exchange copies {copies}; first call {first_s:.2f} "
-        f"s, plain {plain_s:.2f} s, warm {ms:.1f} ms a frame "
-        f"({[round(1e3 * x, 1) for x in times]}); peak memory on {dev} "
-        f"{mem_sharded / 2**30:.2f} GiB sharded against "
-        f"{mem_single / 2**30:.2f} GiB for the single-device step"
+        f"s, plain {plain_s:.2f} s, warm {ms:.1f} ms a frame replayed "
+        f"against {runs[1]['eager_ms']:.1f} eager; peak memory a card of "
+        f"the eager sharded body {runs[1]['eager_peak_gib']} GiB, the graph "
+        f"holds {runs[1]['held_gib']} GiB reserved, against "
+        f"{mem_single / 2**30:.2f} GiB on {dev} for the single-device step"
         + (" (all slabs on this one card)"
            if len(set(devices)) == 1 else "") + f"; card {card}")
     check(valid_k and valid_p, f"10c {tag}: valid {valid_k} {valid_p}")
@@ -2563,7 +2752,7 @@ def phase_spatial_step(card, dev, devices, tag, params, fixed_t, moving_t):
           f"{ONE_BLOCK_EPE}")
     check(launches == expected, f"10c {tag}: launches {launches} != "
           f"{expected}")
-    return launches, ms
+    return launches, runs[1]["replayed"], ms
 
 
 def phase_spatial_convergent(card, dev, devices):
@@ -2571,7 +2760,8 @@ def phase_spatial_convergent(card, dev, devices):
     single-device flow, on the accuracy gate (EPE <= 0.25, >= 40 dB), or,
     where the single-device step on input scaled by ``SCALES`` moves
     further than the gate, within that spread (EPE 1.25 times, 1 dB), at
-    most ``CONVERGENT_EPE_CAP`` and at least ``AGREEMENT_FLOOR_DB``."""
+    most ``CONVERGENT_EPE_CAP`` and at least ``AGREEMENT_FLOOR_DB``; the
+    sharded graph against its eager body."""
     import torch
 
     import flowreg3d_tpu_torch as ft
@@ -2591,6 +2781,11 @@ def phase_spatial_convergent(card, dev, devices):
                 psnr(reg_s[crop].cpu().numpy(), reg[crop].cpu().numpy()))
 
     epe, agree = epe_db(flow_k, reg_k)
+    # the replayed flow against the eager sharded body, bit for bit
+    sharded_graph_against_eager(
+        card, fixed_t, moving_t, CONVERGENT, devices,
+        f"10c convergent {CONV_SHAPE} over {[str(d) for d in devices]}",
+        calls=False)
     spreads = []
     for scale in SCALES:
         flow_e, _ = run_step(fixed_t * scale, moving_t * scale, CONVERGENT,
@@ -2617,11 +2812,9 @@ def phase_spatial_convergent(card, dev, devices):
 def phase_multi_pipelines(card, dev, fixed, mesh_devices, spatial_devices):
     """10d: compensate_arr_3D at OFOptions() defaults through the mesh
     executor (phase 6b's T=4 recording; resident and host-staged; bit-
-    identical to the batched executor) and the spatial executor (T=2;
-    registered volumes against batched at ``agreement_bar`` of batched on
-    the frames scaled by ``SCALES``; the frames solved on one device
-    counted). Returns (mesh host launches, mesh replays, spatial
-    launches)."""
+    identical to the batched executor) and the spatial executor
+    (``phase_spatial_pipeline``). Returns (mesh host launches, mesh
+    replays, spatial host launches, spatial replays)."""
     from flowreg3d_tpu_torch.parallel import executors as tex
 
     frames = recording(fixed, PIPELINE_T)
@@ -2663,8 +2856,21 @@ def phase_multi_pipelines(card, dev, fixed, mesh_devices, spatial_devices):
     check(same and same_h, "10d: the mesh pipeline is not bit-identical to "
           "batched")
     tex.clear_frame_graphs()
+    return (launches, reps) + phase_spatial_pipeline(card, dev, fixed,
+                                                     spatial_devices)
 
-    t2 = frames[:2]
+
+def phase_spatial_pipeline(card, dev, fixed, spatial_devices):
+    """10d: compensate_arr_3D at OFOptions() defaults through the spatial
+    executor over ``spatial_devices`` on the first T=2 frames of phase 6b's
+    recording: registered volumes against batched at ``agreement_bar`` of
+    batched on the frames scaled by ``SCALES``, the frames solved on one
+    device counted, one replay of its frame graph a frame. Returns (host
+    launches, replays)."""
+    from flowreg3d_tpu_torch.parallel import executors as tex
+
+    batched = dict(parallelization="batched")
+    t2 = recording(fixed, PIPELINE_T)[:2]
     reg_b2, _, _, _ = run_pipeline(t2, fixed, True, dev, True, **batched)
     spread = min(psnr(a, b) for scale in SCALES for a, b in zip(
         reg_b2, run_pipeline(t2 * np.float32(scale), fixed, True, dev,
@@ -2677,20 +2883,29 @@ def phase_multi_pipelines(card, dev, fixed, mesh_devices, spatial_devices):
         t2, fixed, True, dev, True, stats=stats, parallelization="spatial",
         devices=spatial_devices)
     sp_launches = read_counts()
+    (graph,) = tex.graphs("sharded")
+    sp_reps = replayed(graph)
+    # one replay a frame: the initial-w pass's frames and the recording's
+    check(graph.replays == 2 * len(t2), f"10d spatial: {graph.replays} "
+          f"replays of its frame graph, {len(t2)} frames")
+    del graph
     agree = [psnr(a, b) for a, b in zip(reg_b2, reg_sp)]
     single = stats["executor_info"]["single_device_frames"]
     log(f"  10d spatial pipeline over {[str(d) for d in spatial_devices]}, "
         f"T=2 at OFOptions() defaults: ran {info_sp} in {s_sp:.2f} s; "
         f"registered vs batched {[round(a, 2) for a in agree]} dB (>= "
         f"{bar:.2f}; batched on frames scaled by {SCALES}: at least "
-        f"{spread:.2f} dB); frames solved on one device {single}; launches "
-        f"{sp_launches}")
+        f"{spread:.2f} dB); frames solved on one device {single}; host "
+        f"launches {sp_launches} (the capture's warm frame), replays ran "
+        f"{sp_reps} (one frame graph replay a frame, the initial-w pass's "
+        f"and the recording's)")
     check(info_sp["executor"] == "spatial" and not info_sp["resident"],
           f"10d spatial ran {info_sp}")
     check(min(agree) >= bar, f"10d spatial: {agree} dB against batched, bar "
           f"{bar} (spread {spread} dB)")
     check(np.isfinite(flows_sp).all(), "10d spatial: non-finite flows")
-    return launches, reps, sp_launches
+    tex.clear_frame_graphs()
+    return sp_launches, sp_reps
 
 
 def phase_mesh_long(card, dev, fixed, n_frames=24):
@@ -2754,6 +2969,82 @@ def phase_mesh_long(card, dev, fixed, n_frames=24):
     return vols
 
 
+def _probe_toy(x, d1, copy):
+    """The probe's program: a kernel on x's card, a copy to card ``d1``, a
+    kernel there, a copy back, a kernel on x's card."""
+    import torch
+
+    a = torch.sin(x) * 2.0 + 1.0
+    b = copy(torch.empty_like(a, device=d1), a)
+    c = torch.cos(b) * b
+    back = copy(torch.empty_like(c, device=x.device), c)
+    return back + x
+
+
+def graph_probe(n=1 << 22, n_replays=5):
+    """10f, on two cards: whether one CUDA graph can span them, on a toy
+    program (``_probe_toy``) replayed ``n_replays`` times on fresh inputs
+    against its eager run, with eager tensors allocated on card 1 between
+    the capture and the replays (a replay that wrote into blocks the
+    allocator handed out again would change them). The graph is
+    ``_graph.BodyGraph`` itself: capture on card 0, card 1's work on a
+    stream forked from the capture and joined back by events, its
+    allocations in a MemPool the graph holds. Fails unless every replay is
+    bit-equal and the eager tensors are untouched."""
+    import torch
+
+    from flowreg3d_tpu_torch import _graph
+    from flowreg3d_tpu_torch.parallel.mesh import peer_copy
+
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    gen = torch.Generator(device=d0).manual_seed(11)
+    inputs = [torch.randn(n, generator=gen, device=d0)
+              for _ in range(n_replays)]
+    graph = _graph.BodyGraph(lambda x: (_probe_toy(x, d1, peer_copy),),
+                             [((n,), torch.float32)], d0, [d0, d1])
+    keep, diffs = None, []
+    for x in inputs:
+        (got,) = graph.run(x)
+        if keep is None:
+            keep = [torch.full((n,), 7.0, device=d1) for _ in range(8)]
+        sync([d0, d1])
+        want = _probe_toy(x, d1, peer_copy)
+        diffs.append(float((got - want).abs().max()))
+    kept = all(bool((k == 7.0).all()) for k in keep)
+    log(f"  10f one graph across two cards (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, peer access "
+        f"{torch.cuda.can_device_access_peer(0, 1)}): {graph.replays} "
+        f"replays bit-equal {max(diffs) == 0.0} (max|diff| {max(diffs)}), "
+        f"eager tensors on card 1 untouched {kept}")
+    check(max(diffs) == 0.0 and kept, f"10f: one graph across two cards, "
+          f"max|diff| {max(diffs)}, eager tensors untouched {kept}")
+
+
+def phase_across_cards(card, dev):
+    """Phase 10's sharded paths on every card alone (the four-card call):
+    the two-card graph probe (10f), then over one shard a card the sharded
+    level solve (10b), the sharded step at both option sets (10c: each
+    graph against its eager body and the single-device step, the eager
+    peak and the graph's memory a card) and the spatial executor's T=2
+    pipeline (10d: one frame graph replay a frame, against batched).
+    Returns {tag: warm graph ms}."""
+    import torch
+
+    devices = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+    log(f"phase 10 across cards: {[str(d) for d in devices]}")
+    graph_probe()
+    phase_level_sharded(card, dev, devices)
+    fixed, moving = make_pair(SHAPE)
+    fixed_t, moving_t = (torch.from_numpy(a).to(dev) for a in (fixed, moving))
+    out = {tag: phase_spatial_step(card, dev, devices, tag, params, fixed_t,
+                                   moving_t)[2]
+           for tag, params in (("spatial", DIRECT_DEFAULTS),
+                               ("spatial_defaults", CANONICAL))}
+    phase_spatial_pipeline(card, dev, fixed, devices)
+    return out
+
+
 def phase_multi_gpu(card, dev, fixed):
     """Phase 10: the multi-GPU execution paths. One card: the mesh executor
     over [cuda:0] and the Z-sharded paths over [cuda:0, cuda:0] (two shards
@@ -2770,7 +3061,10 @@ def phase_multi_gpu(card, dev, fixed):
                                for i in range(n_cards)]))
     log(f"phase 10: multi-GPU execution on {n_cards} card(s); layouts "
         f"(mesh, spatial): "
-        f"{[(m or 'every card', [str(d) for d in s]) for m, s in layouts]}")
+        f"{[(m or 'every card', [str(d) for d in s]) for m, s in layouts]}; "
+        f"the sharded paths replay one graph a layout, across its cards")
+    if n_cards > 1:
+        graph_probe()
     timed = phase_slab_kernels(card, dev)
     fixed_np, moving_np = make_pair(SHAPE)
     fixed_t, moving_t = (torch.from_numpy(a).to(dev)
@@ -2781,12 +3075,13 @@ def phase_multi_gpu(card, dev, fixed):
         phase_level_sharded(card, dev, spatial_devs)
         for tag, params in (("spatial", DIRECT_DEFAULTS),
                             ("spatial_defaults", CANONICAL)):
-            counts[tag + sfx], summary[tag + sfx + "_ms"] = \
-                phase_spatial_step(card, dev, spatial_devs, tag, params,
-                                   fixed_t, moving_t)
+            (counts[tag + sfx], replays[tag + sfx],
+             summary[tag + sfx + "_ms"]) = phase_spatial_step(
+                card, dev, spatial_devs, tag, params, fixed_t, moving_t)
         phase_spatial_convergent(card, dev, spatial_devs)
         (counts["mesh" + sfx], replays["mesh" + sfx],
-         counts["spatial_pipeline" + sfx]) = phase_multi_pipelines(
+         counts["spatial_pipeline" + sfx],
+         replays["spatial_pipeline" + sfx]) = phase_multi_pipelines(
             card, dev, fixed, mesh_devices, spatial_devs)
     if n_cards > 1:
         summary["mesh_T24_volumes_per_s"] = phase_mesh_long(card, dev, fixed)
@@ -3046,11 +3341,14 @@ def phase_extras(card, dev, fixed, displaced, flow_gt):
     ground-truth flow (kernel against plain, bit-equal; closer to the fixed
     volume than the splatted one),
     resize_batch of a T=4 batch to half size (against the CPU), and the 2D
-    solver compute_flow on a 512x512 plane (shift recovery; float64 against
-    the CPU). Returns the backward warp's launches."""
+    solver compute_flow on a 512x512 plane (shift recovery; its CUDA graph
+    against the eager body, bit for bit, timed in turns; float64, through
+    the graph too, against the CPU). Returns the backward warp's
+    launches."""
     import torch
 
     from flowreg3d_tpu_torch.core import compute_flow
+    from flowreg3d_tpu_torch.core.solver2d import flow2d_solver
     from flowreg3d_tpu_torch.motion_generation import warp_volume_backward
     from flowreg3d_tpu_torch.ops import resize_batch
 
@@ -3089,8 +3387,17 @@ def phase_extras(card, dev, fixed, displaced, flow_gt):
                   a_data=a_data, a_smooth=a_smooth)
         J, w, u, v = plane_problem(shift, np.float32)
         du, dv = compute_flow(J, w, u, v, device=dev, **kw)
-        ms = cuda_ms(lambda: compute_flow(J, w, u, v, device=dev, **kw),
-                     n=3, warm=1)
+        solve = flow2d_solver(PLANE, 1, kw["alpha"], kw["iterations"],
+                              kw["update_lag"], a_data, a_smooth, 1.0, 1.0,
+                              torch.float32, dev)
+        Jt, wt, ut, vt = (torch.from_numpy(x).to(dev)
+                          for x in (np.stack(J), w, u, v))
+        timed = graph_against_eager(
+            f"11c compute_flow {PLANE} a_smooth {a_smooth}", card,
+            lambda: compute_flow(Jt, wt, ut, vt, device=dev, **kw),
+            lambda: solve(Jt, wt, ut, vt), "flow2d", [dev], n=3,
+            calls=False)
+        ms = timed["graph_ms"]
         along, across = ((du, dv) if shift[1] else (dv, du))
         med = (float(along[8:-8, 8:-8].median()),
                float(across[8:-8, 8:-8].median()))
@@ -3105,7 +3412,8 @@ def phase_extras(card, dev, fixed, displaced, flow_gt):
         d = max(float((a.cpu() - b).abs().max())
                 for a, b in zip(card64, cpu64))
         log(f"  compute_flow {PLANE} a_smooth {a_smooth}: {ms:.2f} ms "
-            f"(float32, 80 iterations); median flow along / across the "
+            f"replayed, {timed['eager_ms']:.2f} eager (float32, 80 "
+            f"iterations, warm wall); median flow along / across the "
             f"0.4 shift {med[0]:.4f} / {med[1]:.4f}; {wild} flow values "
             f"above 5; float64 card vs CPU over {COMPARE_ITERATIONS} "
             f"iterations max diff {d:.3e} (<= 1e-9); card {card}")
@@ -3138,7 +3446,7 @@ def phase_timing(card, fixed_t, moving_t, plain_s):
     return phase_step_graph(card, fixed_t, moving_t, CANONICAL, "canonical")
 
 
-def phase_step_graph(card, fixed_t, moving_t, params, tag, n=7):
+def phase_step_graph(card, fixed_t, moving_t, params, tag, n=5):
     """get_displacement's CUDA graph against the eager pyramid it captures,
     at C = 1 and C = 2: the flows bit-equal (max |diff| 0); the first
     call's seconds (warm eager run, capture, replay) and the capture's; the

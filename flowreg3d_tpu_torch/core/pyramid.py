@@ -11,8 +11,8 @@ motion tensor -> SOR solve -> median -> accumulate.
 
 The schedule is computed on the host. ``build_pyramid`` runs the levels
 eagerly; on CUDA, ``get_displacement`` replays one CUDA graph of it per
-configuration and device (``PyramidGraph``, the counterpart of the JAX
-package's ``_build_pyramid_fn``), captured on first use. With
+configuration and device (a ``_graph.BodyGraph`` of it, the counterpart of
+the JAX package's ``_build_pyramid_fn``), captured on first use. With
 ``use_kernels=True`` every level's warp, sweeps and median go through the
 CUDA kernels on CUDA tensors (their plain versions on CPU tensors);
 ``use_kernels=False`` runs the plain PyTorch versions on any device.
@@ -24,8 +24,7 @@ import torch
 from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch.core.motion_tensor import MOTION_TENSORS, pad_edge
-from flowreg3d_tpu_torch.core.solver import (compute_flow_level_cl,
-                                             data_exponents)
+from flowreg3d_tpu_torch.core.solver import data_exponents, solve_level_cl
 from flowreg3d_tpu_torch.ops.median_kernel import (median5_plain,
                                                    median_filter_5x5x5_batched,
                                                    mirror_pad2)
@@ -134,7 +133,7 @@ def level_step(f1, f2, u, v, w, weight, h, alpha, motion_tensor, iterations,
         for c in range(f1.shape[-1])], dim=1)          # (10, C, p, m, n)
     weight = torch.nn.functional.pad(weight.movedim(-1, 0),
                                      (1, 1, 1, 1, 1, 1))
-    du, dv, dw = compute_flow_level_cl(
+    du, dv, dw = solve_level_cl(
         Jc, weight, u, v, w, alpha, iterations, update_lag, a_vec, a_smooth,
         hx, hy, hz, use_kernels=use_kernels)
     if min(f1.shape[:3]) > 5:
@@ -218,40 +217,6 @@ def build_pyramid(shape, n_channels, alpha, update_lag, iterations,
     return pyramid
 
 
-class PyramidGraph(_graph.CapturedGraph):
-    """``build_pyramid(*key)`` captured as a CUDA graph on ``device``, over
-    static ``fixed``, ``moving``, ``weight`` (Z,Y,X,C) and ``uvw`` (Z,Y,X,3)
-    buffers, with ``flow`` (Z,Y,X,3) as its output. ``a_vec`` is uploaded
-    once, when the pyramid is built."""
-
-    def __init__(self, key, device):
-        shape, C, dtype = key[0], key[1], getattr(torch, key[11])
-        self.pyramid = build_pyramid(*key, device=device)
-        self.fixed, self.moving, self.weight = (
-            torch.zeros(shape + (C,), dtype=dtype, device=device)
-            for _ in range(3))
-        self.uvw = torch.zeros(shape + (3,), dtype=dtype, device=device)
-        super().__init__(device)
-        self.flow = self.outputs
-
-    def _body(self):
-        return self.pyramid(self.fixed, self.moving, self.uvw, self.weight)
-
-    def run(self, fixed, moving, uvw, weight):
-        """Copy the inputs in (``uvw`` None: zeros), replay, and return a
-        copy of the flow: the next call overwrites the static one."""
-        with torch.cuda.device(self.device):
-            self.fixed.copy_(fixed)
-            self.moving.copy_(moving)
-            if uvw is None:
-                self.uvw.zero_()
-            else:
-                self.uvw.copy_(uvw)
-            self.weight.copy_(weight)
-            self.replay()
-            return self.flow.clone()
-
-
 def pyramid_graphs():
     """The cached ``get_displacement`` graphs (at most one a device)."""
     return _graph.graphs("pyramid")
@@ -280,16 +245,19 @@ def get_displacement(fixed, moving, alpha=(2.0, 2.0, 2.0), update_lag=10,
         fixed = fixed[..., None]
         moving = moving[..., None]
     p, m, n, n_channels = fixed.shape
-    if uvw is not None:
+    if uvw is None:
+        uvw = torch.zeros((p, m, n, 3), dtype=dtype, device=dev)
+    else:
         uvw = torch.as_tensor(uvw).to(device=dev, dtype=dtype)
     weight = _normalize_weight(weight, (p, m, n), n_channels, dtype, dev)
     key = pyramid_config_key(
         (p, m, n), n_channels, alpha, update_lag, iterations, min_level,
         levels, eta, a_smooth, a_data, const_assumption, dtype, use_kernels)
+    inputs = (fixed, moving, uvw, weight)
     if dev.type == "cuda":
-        graph = _graph.cached("pyramid", key, dev,
-                              lambda: PyramidGraph(key, dev))
-        return graph.run(fixed, moving, uvw, weight)
-    if uvw is None:
-        uvw = torch.zeros((p, m, n, 3), dtype=dtype, device=dev)
-    return build_pyramid(*key, device=dev)(fixed, moving, uvw, weight)
+        def capture():
+            pyramid = build_pyramid(*key, device=dev)
+            return _graph.BodyGraph(lambda *x: (pyramid(*x),),
+                                    [(x.shape, dtype) for x in inputs], dev)
+        return _graph.cached("pyramid", key, dev, capture).run(*inputs)[0]
+    return build_pyramid(*key, device=dev)(*inputs)

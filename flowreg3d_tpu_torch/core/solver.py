@@ -20,12 +20,16 @@ Two formulations:
   tensors or with ``use_kernels=False``.
 
 Neither sweep writes the increments' ring; ``set_boundary_3d`` sets it on
-the result.
+the result. On CUDA the public ``compute_flow_level`` / ``_cl`` replay one
+CUDA graph per configuration and device (JAX's jitted ``_solve``); the
+pyramid's levels call ``solve_level_cl``, captured inside the pyramid's own
+graph.
 """
 
 import numpy as np
 import torch
 
+from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch.core.solver_kernel import (_scalar_type,
                                                     base_laplacian, fold_base,
                                                     sweep_iterations)
@@ -108,6 +112,66 @@ def data_exponents(a_data, n_channels, dtype, device):
     return a_vec.expand(n_channels) if a_vec.numel() == 1 else a_vec
 
 
+def level_solver(shape, n_channels, alpha, iterations, update_lag, a_data,
+                 a_smooth, hx, hy, hz, dtype, device, use_kernels=True):
+    """One level solve's host work done once: the stencil weights and grid
+    spacings rounded in ``dtype``, the regime, and the exponents on
+    ``device`` (``data_exponents``; a tensor passes through; None: given
+    to each solve). Returns ``solve(Jc, weight, u, v, w, a=None) -> (du,
+    dv, dw)``: Jc (10,C,p,m,n) and weight (C,p,m,n) of u's dtype, ``a``
+    the exponents as a tensor on u's device when ``a_data`` is None; it
+    uploads nothing, so a CUDA graph can capture it."""
+    t = _scalar_type(dtype)
+    a_vec = (None if a_data is None
+             else data_exponents(a_data, n_channels, dtype, device))
+    ax, ay, az = (float(t(a) / (t(h) * t(h)))
+                  for a, h in zip(np.asarray(alpha, np.float64).reshape(3),
+                                  (hx, hy, hz)))
+    hx, hy, hz = (float(t(h)) for h in (hx, hy, hz))
+    a_smooth = float(t(a_smooth))
+
+    def solve(Jc, weight, u, v, w, a=None):
+        a = a_vec if a is None else data_exponents(a, n_channels, dtype,
+                                                   device)
+        if a_smooth == 1.0:
+            return _solve_folded(Jc, weight, a, u, v, w, ax, ay, az,
+                                 iterations, update_lag, use_kernels)
+        return _solve_psi(Jc, weight, a, u, v, w, a_smooth, ax, ay, az,
+                          hx, hy, hz, iterations, update_lag, use_kernels)
+
+    return solve
+
+
+def solve_level_cl(J_entries, weight, u, v, w, alpha, iterations,
+                   update_lag, a_data, a_smooth, hx, hy, hz,
+                   use_kernels=True):
+    """``compute_flow_level_cl`` run eagerly, on any device: the pyramid's
+    level solve (captured inside its graph) and the CPU path."""
+    Jc = torch.stack(list(J_entries)).to(u.dtype)
+    weight = weight.to(u.dtype).reshape(Jc.shape[1:])
+    return level_solver(u.shape, Jc.shape[1], alpha, iterations, update_lag,
+                        a_data, a_smooth, hx, hy, hz, u.dtype, u.device,
+                        use_kernels)(Jc, weight, u, v, w)
+
+
+def level_config_key(shape, n_channels, alpha, iterations, update_lag,
+                     a_data, a_smooth, hx, hy, hz, dtype, use_kernels):
+    """Hashable static configuration of one level solve: host values, or
+    ``"tensor"`` for exponents given as a tensor (a graph input then)."""
+    if isinstance(a_data, torch.Tensor):
+        a_data = "tensor"
+    else:
+        a_data = tuple(float(a) for a in np.asarray(a_data,
+                                                     np.float64).ravel())
+        a_data = a_data * n_channels if len(a_data) == 1 else a_data
+    return (tuple(int(s) for s in shape), int(n_channels),
+            tuple(float(a) for a in np.broadcast_to(
+                np.asarray(alpha, np.float64), (3,))),
+            int(iterations), int(update_lag), a_data, float(a_smooth),
+            float(hx), float(hy), float(hz),
+            str(dtype).removeprefix("torch."), bool(use_kernels))
+
+
 def compute_flow_level_cl(J_entries, weight, u, v, w, alpha, iterations,
                           update_lag, a_data, a_smooth, hx, hy, hz,
                           use_kernels=True):
@@ -117,22 +181,30 @@ def compute_flow_level_cl(J_entries, weight, u, v, w, alpha, iterations,
     J34] or one (10,C,p,m,n) stack; weight (C,p,m,n); u,v,w (p,m,n)
     accumulated flow with its one-voxel ring; alpha 3-sequence; a_data
     (C,) or scalar, or a tensor on the flow's device (``data_exponents``).
-    Returns (du, dv, dw), each (p,m,n).
+    On CUDA the solve replays one CUDA graph per configuration and device
+    (``_graph.BodyGraph`` of ``level_solver``'s body, kind ``"level"``,
+    captured on the first call: the JAX package's jitted ``_solve``);
+    elsewhere it runs eagerly (``solve_level_cl``). Returns (du, dv, dw),
+    each (p,m,n).
     """
-    t = _scalar_type(u.dtype)
-    Jc = torch.stack(list(J_entries)).to(u.dtype)
-    weight = weight.to(u.dtype).reshape(Jc.shape[1:])
-    a_vec = data_exponents(a_data, Jc.shape[1], u.dtype, u.device)
-    ax, ay, az = (float(t(a) / (t(h) * t(h)))
-                  for a, h in zip(np.asarray(alpha, np.float64).reshape(3),
-                                  (hx, hy, hz)))
-    hx, hy, hz = (float(t(h)) for h in (hx, hy, hz))
-    a_smooth = float(t(a_smooth))
-    if a_smooth == 1.0:
-        return _solve_folded(Jc, weight, a_vec, u, v, w, ax, ay, az,
-                             iterations, update_lag, use_kernels)
-    return _solve_psi(Jc, weight, a_vec, u, v, w, a_smooth, ax, ay, az, hx,
-                      hy, hz, iterations, update_lag, use_kernels)
+    if u.device.type != "cuda":
+        return solve_level_cl(J_entries, weight, u, v, w, alpha, iterations,
+                              update_lag, a_data, a_smooth, hx, hy, hz,
+                              use_kernels)
+    Jc = (J_entries if isinstance(J_entries, torch.Tensor)
+          else torch.stack(list(J_entries)))
+    C, dtype = Jc.shape[1], u.dtype
+    key = level_config_key(u.shape, C, alpha, iterations, update_lag, a_data,
+                           a_smooth, hx, hy, hz, dtype, use_kernels)
+    inputs = [Jc, weight.reshape(Jc.shape[1:]), u, v, w]
+    if key[5] == "tensor":           # the exponents are an input too
+        inputs.append(a_data.reshape(-1).expand(C))
+    graph = _graph.cached("level", key, u.device, lambda: _graph.BodyGraph(
+        level_solver(u.shape, C, alpha, iterations, update_lag,
+                     None if key[5] == "tensor" else a_data, a_smooth, hx,
+                     hy, hz, dtype, u.device, use_kernels),
+        [(x.shape, dtype) for x in inputs], u.device))
+    return graph.run(*inputs)
 
 
 def compute_flow_level(J_entries, weight, u, v, w, alpha, iterations,

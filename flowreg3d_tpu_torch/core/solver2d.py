@@ -5,7 +5,9 @@ nonlinear point-wise SOR on the 2D Euler-Lagrange system: the data term's
 psi lagged, updated every ``update_lag`` iterations; flow-driven smoothness
 diffusivity every iteration (its gradients are clamped central differences,
 not the 3D solver's stencil); omega 1.95; Neumann boundaries; red then black.
-The JAX package has no Pallas kernel here, so neither has the port.
+The JAX package has no Pallas kernel here, so neither has the port; on CUDA
+``compute_flow`` replays one CUDA graph per configuration and device
+(``_graph.BodyGraph``, JAX's jitted ``_solve2d``).
 
 J entries: 2D motion tensor (J11, J22, J33, J12, J13, J23) with the
 convention J = [[J11, J12, J13], [J12, J22, J23], [J13, J23, J33]] over
@@ -15,6 +17,7 @@ convention J = [[J11, J12, J13], [J12, J22, J23], [J13, J23, J33]] over
 import numpy as np
 import torch
 
+from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch._device import resolve_device
 
 OMEGA = 1.95
@@ -142,6 +145,29 @@ def _solve2d(Jt, weight, u, v, alpha, a_data, a_smooth, hx, hy,
     return du, dv
 
 
+def flow2d_solver(shape, n_channels, alpha, iterations, update_lag, a_data,
+                  a_smooth, hx, hy, dtype, device):
+    """``compute_flow``'s host work done once: its scalars as tensors on
+    ``device`` (uploaded here). Returns ``solve(Jt, weight, u, v) -> (du,
+    dv)``, Jt (6,m,n,C), which uploads nothing (capturable in a CUDA
+    graph)."""
+    def scalar(x):
+        return torch.as_tensor(np.array(x, np.float64), device=device).to(
+            dtype)
+
+    consts = (scalar(alpha), scalar(np.broadcast_to(
+        np.asarray(a_data, np.float64), (n_channels,))), scalar(a_smooth),
+        scalar(hx), scalar(hy))
+    flag = float(a_smooth) == 1.0
+
+    def solve(Jt, weight, u, v):
+        alpha_t, a_data_t, a_smooth_t, hx_t, hy_t = consts
+        return _solve2d(Jt, weight, u, v, alpha_t, a_data_t, a_smooth_t,
+                        hx_t, hy_t, int(iterations), int(update_lag), flag)
+
+    return solve
+
+
 def compute_flow(J_entries, weight, u, v, alpha=(2.0, 2.0), iterations=20,
                  update_lag=5, a_data=0.45, a_smooth=1.0, hx=1.0, hy=1.0,
                  device=None):
@@ -150,22 +176,32 @@ def compute_flow(J_entries, weight, u, v, alpha=(2.0, 2.0), iterations=20,
 
     J_entries: 6 arrays (m, n, C) in order [J11, J22, J33, J12, J13, J23];
     weight (m, n, C); u, v (m, n) accumulated flow with boundary ring;
-    numpy arrays or tensors.
+    numpy arrays or tensors. On CUDA the solve replays one CUDA graph per
+    configuration and device (``_graph.BodyGraph`` of ``flow2d_solver``'s
+    body, kind ``"flow2d"``, captured on the first call: the JAX package's
+    jitted ``_solve2d``); elsewhere it runs eagerly.
     """
     dev = resolve_device(device)
     u = torch.as_tensor(u, device=dev)
     dtype = u.dtype
+    C = np.shape(J_entries[0])[-1]
+    key = (tuple(u.shape), int(C),
+           tuple(float(a) for a in np.asarray(alpha, np.float64).ravel()),
+           int(iterations), int(update_lag),
+           tuple(float(a) for a in np.asarray(a_data, np.float64).ravel()),
+           float(a_smooth), float(hx), float(hy),
+           str(dtype).removeprefix("torch."))
     v = torch.as_tensor(v, device=dev).to(dtype)
     Jt = torch.stack([torch.as_tensor(j, device=dev).to(dtype)
                       for j in J_entries])
-    C = Jt.shape[-1]
+    inputs = (Jt, torch.as_tensor(weight, device=dev).to(dtype), u, v)
 
-    def scalar(x):
-        return torch.as_tensor(np.array(x, np.float64), device=dev).to(
-            dtype)
+    def solver():
+        return flow2d_solver(tuple(u.shape), C, alpha, iterations,
+                             update_lag, a_data, a_smooth, hx, hy, dtype, dev)
 
-    a_data = scalar(np.broadcast_to(np.asarray(a_data, np.float64), (C,)))
-    return _solve2d(Jt, torch.as_tensor(weight, device=dev).to(dtype), u, v,
-                    scalar(alpha), a_data, scalar(a_smooth), scalar(hx),
-                    scalar(hy), int(iterations), int(update_lag),
-                    float(a_smooth) == 1.0)
+    if dev.type == "cuda":
+        graph = _graph.cached("flow2d", key, dev, lambda: _graph.BodyGraph(
+            solver(), [(x.shape, dtype) for x in inputs], dev))
+        return graph.run(*inputs)
+    return solver()(*inputs)

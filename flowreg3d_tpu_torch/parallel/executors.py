@@ -27,10 +27,12 @@ cross-correlation prealignment) and four executors:
   (the resident engine finalizes and downloads them there), ``_run``
   gathers them on the executor's device;
 - ``spatial``: one frame at a time, its pyramid Z-sharded over the devices
-  (``parallel/spatial_pyramid.get_displacement_sharded``), eager; a frame
-  whose flow needs z-samples beyond the warp's halo is recomputed on the
-  single-device path, and ``get_info()['single_device_frames']`` counts
-  those frames.
+  (``parallel/spatial_pyramid.build_sharded_pyramid``) and its raw frame
+  warped on the first shard's device; on CUDA one replay a frame of its
+  graph (kind ``"sharded"``) (the JAX package's ``jax.jit(shard_map(...))``), one host
+  read of its ``valid`` flag a frame; a frame whose flow needs z-samples
+  beyond the warp's halo is recomputed on the single-device path, and
+  ``get_info()['single_device_frames']`` counts those frames.
 
 Per frame: the flow from the port's pyramid (``core/pyramid.build_pyramid``),
 then the warp of the raw frame onto the reference. Under
@@ -61,7 +63,7 @@ from flowreg3d_tpu_torch.ops.warp import warp
 from flowreg3d_tpu_torch.parallel.mesh import (batch_devices, batch_ranges,
                                                replicate, shard_batch)
 from flowreg3d_tpu_torch.parallel.spatial_pyramid import (
-    get_displacement_sharded)
+    _DEF_HALO_W, build_sharded_pyramid)
 from flowreg3d_tpu_torch.util.xcorr_prealignment import (
     estimate_rigid_xcorr_device)
 
@@ -216,9 +218,20 @@ def prealign_graphs():
     return _graph.graphs("prealign")
 
 
+def graphs(kind):
+    """The cached graphs of ``kind`` (at most one a device or device
+    list): ``"frame"``, ``"prealign"``, ``"pyramid"`` (``get_displacement``),
+    ``"sharded"`` (``get_displacement_sharded`` and the spatial executor's
+    frame), ``"sharded_level"`` (``compute_flow_level_sharded``),
+    ``"level"`` (``compute_flow_level``) or ``"flow2d"``
+    (``core.compute_flow``)."""
+    return _graph.graphs(kind)
+
+
 def clear_frame_graphs():
-    """Drop every captured graph and its memory pool: the frames', the
-    prealignment's and ``get_displacement``'s."""
+    """Drop every captured graph and its memory pools: the frames', the
+    prealignment's, ``get_displacement``'s, the Z-sharded pyramids' and
+    frames', and the level solvers'."""
     _graph.clear()
 
 
@@ -575,36 +588,61 @@ class SpatialExecutor3D(BaseExecutor3D):
                     single_device_frames=self.single_device_frames)
         return info
 
+    def _frame_fn(self, key, order, inputs):
+        """``frame(ref_raw, ref_proc, weight, raw, proc, uvw) -> (flow,
+        valid, reg)``: one frame Z-sharded over the devices (the sharded
+        pyramid's body; the weight a vector or a volume), its raw frame
+        warped on the first shard's device; ``inputs``, tensors of those
+        shapes. On CUDA the replay of the cached graph of the frame (kind
+        ``"sharded"``, the batched executor's ``FrameGraph`` counterpart);
+        on the CPU the eager body."""
+        home = self.devices[0]
+        halo_w = self.halo_w or _DEF_HALO_W
+        specs = [(x.shape, self.dtype) for x in inputs]
+
+        def body():
+            pyramid = build_sharded_pyramid(key, self.devices, halo_w=halo_w)
+
+            def frame(ref_raw, ref_proc, weight, raw, proc, uvw):
+                flow, valid = pyramid(ref_proc, proc, uvw, weight)
+                reg = warp(raw, flow[..., 0], flow[..., 1], flow[..., 2],
+                           ref_raw, order, self.use_kernels)
+                return flow, valid, reg
+            return frame
+
+        if home.type == "cuda":
+            return _graph.cached(
+                "sharded", (key, order, halo_w, specs[2][0], "frame"),
+                tuple(self.devices),
+                lambda: _graph.BodyGraph(body(), specs, home,
+                                         self.devices)).run
+        return body()
+
     def _run(self, batch, batch_proc, ref_raw, ref_proc, uvw, weight, key,
              order, progress_callback):
-        (_, _, alpha, update_lag, iterations, min_level, levels, eta,
-         a_smooth, a_data, const_assumption, _, _) = key
-        kw = dict(alpha=alpha, update_lag=update_lag, iterations=iterations,
-                  min_level=min_level, levels=levels, eta=eta,
-                  a_data=np.asarray(a_data), const_assumption=const_assumption,
-                  a_smooth=a_smooth, dtype=self.dtype,
-                  use_kernels=self.use_kernels)
-        if self.halo_w:
-            kw["halo_w"] = self.halo_w
         flat = weight.reshape(-1, weight.shape[-1])
         # a per-channel weight goes as its vector, not a volume to shard
         wvec = flat[0] if bool((flat == flat[0]).all()) else weight
-        regs, flows = [], []
+        home = self.devices[0]
+        ref = [x.to(home) for x in (ref_raw, ref_proc, wvec)]
+        frame = self._frame_fn(key, order, ref + [batch[0], batch_proc[0],
+                                                  uvw[0]])
+        regs = torch.empty(batch.shape, dtype=self.dtype, device=self.device)
+        flows = torch.empty(tuple(batch.shape[:4]) + (3,), dtype=self.dtype,
+                            device=self.device)
         for t in range(batch.shape[0]):
-            flow, valid = get_displacement_sharded(
-                ref_proc, batch_proc[t], devices=self.devices, uvw=uvw[t],
-                weight=wvec, **kw)
-            flow = flow.to(self.device)
+            flows[t], valid, regs[t] = frame(
+                *ref, *(x[t].to(home) for x in (batch, batch_proc, uvw)))
             if not bool(valid):
                 self.single_device_frames += 1
-                flow = build_pyramid(*key, device=self.device)(
+                flows[t] = build_pyramid(*key, device=self.device)(
                     ref_proc, batch_proc[t], uvw[t], weight)
-            regs.append(warp(batch[t], flow[..., 0], flow[..., 1],
-                             flow[..., 2], ref_raw, order, self.use_kernels))
-            flows.append(flow)
+                regs[t] = warp(batch[t], flows[t, ..., 0], flows[t, ..., 1],
+                               flows[t, ..., 2], ref_raw, order,
+                               self.use_kernels)
             if progress_callback:
                 progress_callback(1)
-        return torch.stack(regs), torch.stack(flows)
+        return regs, flows
 
 
 SequentialExecutor3D.register()

@@ -15,15 +15,25 @@ cards, a plain copy on one device), which counts them.
 import numpy as np
 import torch
 
+from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch._device import resolve_device
 
 
+def _indexed(dev):
+    """A card named without its index ('cuda') as the current card: the
+    device tensors made there report."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def batch_devices(devices=None, device=None):
-    """The shards' devices: ``devices`` as given (each resolved; a device
-    may repeat), else every visible card when ``device`` is CUDA (None
-    means 'cuda', which raises without CUDA), else ``[device]``."""
+    """The shards' devices: ``devices`` as given (each resolved, a card
+    with its index; a device may repeat), else every visible card when
+    ``device`` is CUDA (None means 'cuda', which raises without CUDA), else
+    ``[device]``."""
     if devices is not None:
-        devices = [resolve_device(d) for d in devices]
+        devices = [_indexed(resolve_device(d)) for d in devices]
         if not devices:
             raise ValueError("batch_devices: an empty device list")
         return devices
@@ -86,6 +96,7 @@ def peer_copy(dst, src):
 
 
 peer_copy.copies = 0
+_graph.copy_counters.append(peer_copy)    # a capture takes its copies out
 
 
 def pad_to_multiple(arr, multiple, axis=0):

@@ -24,17 +24,23 @@ a device may repeat) instead of ``shard_map``:
 Halos, ring steps and the gathers onto the first shard move by
 ``peer_copy`` (counted). Tensors of a shard live on its device; the result
 is gathered onto the first shard's device.
-"""
 
-from functools import lru_cache
+``build_sharded_pyramid`` does the host work of a configuration once (the
+schedule, the device tables, the exponents) and returns the body; on CUDA
+``get_displacement_sharded`` replays it as one CUDA graph per configuration
+and device list (``_graph.BodyGraph``, JAX's ``jax.jit(shard_map(...))``),
+the spatial executor one graph of a frame (``parallel/executors.py``).
+"""
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch.core.motion_tensor import MOTION_TENSORS
 from flowreg3d_tpu_torch.core.pyramid import (add_boundary, level_alpha,
-                                              level_schedule, level_step)
+                                              level_schedule, level_step,
+                                              pyramid_config_key)
 from flowreg3d_tpu_torch.core.solver import data_exponents
 from flowreg3d_tpu_torch.ops.median_kernel import median5, median5_plain
 from flowreg3d_tpu_torch.ops.resize import _axis_sigmas, _resize_matrix_np
@@ -43,7 +49,7 @@ from flowreg3d_tpu_torch.ops.warp_kernel import map_coords, map_coords_plain
 from flowreg3d_tpu_torch.parallel.mesh import (batch_devices, peer_copy,
                                                replicate)
 from flowreg3d_tpu_torch.parallel.spatial import (edge_fix, exchange_ghosts,
-                                                  solve_slabs)
+                                                  slab_solver)
 
 _DEF_HALO = 4     # redundant-stencil halo (max stencil radius is 4)
 _DEF_HALO_W = 6   # warp z-sampling halo (max |w|/hz the warp can express)
@@ -63,8 +69,9 @@ def _sym_pad_rows(M, rows_needed):
     return np.concatenate([M, np.stack(refl)], axis=0)
 
 
-# The z, y and x matrices below are named by (make, args) pairs, so that
-# ``_dev_mat`` builds and uploads each once a device.
+# The z, y and x matrices below are named by (make, args) pairs; the
+# builder uploads each once to every shard's device, and the stages below
+# take such a matrix as a dict device -> tensor.
 
 def _resize_mat(in_shape, out_shape, axis):
     """The dense fused-Gauss-cubic resize matrix of one axis (pyramid sigma
@@ -91,14 +98,6 @@ def _prefilter_z_mat(z_len, pz, n, halo_w):
                          (0, pz * n - z_len)))
 
 
-@lru_cache(maxsize=1024)
-def _dev_mat(make, args, device, dtype):
-    """The numpy matrix ``make(*args)`` as a tensor on ``device``, built
-    and uploaded once."""
-    return torch.as_tensor(make(*args), dtype=dtype).to(device)
-
-
-@lru_cache(maxsize=1024)
 def _mirror_rows(k, pz, H, mode, z_total, device):
     """Row index of shard k's extended slab (pz + 2H rows) after the
     numpy-pad fold of global rows outside [0, z_total); None if no row
@@ -120,13 +119,14 @@ def _mirror_rows(k, pz, H, mode, z_total, device):
 
 # -- collectives on a list of shards ------------------------------------------
 
-def _halo_exchange(slabs, H, mode, z_total):
+def _halo_exchange(slabs, H, rows):
     """Extend each shard's (pz, ...) slab with H neighbour rows a side.
 
     Shard k holds global rows [k*pz, (k+1)*pz). Every extended row whose
-    global index lies outside [0, z_total), the volume's face halos and
-    the shard padding past its end, then takes the numpy pad ``mode``
-    ('symmetric', 'reflect' or 'edge') by a gather from the extended slab.
+    global index lies outside the volume, its face halos and the shard
+    padding past its end, then takes a numpy pad mode by a gather from the
+    extended slab: ``rows[k]``, shard k's ``_mirror_rows`` (None: no row
+    moves).
     """
     n, pz = len(slabs), slabs[0].shape[0]
     out = []
@@ -137,8 +137,7 @@ def _halo_exchange(slabs, H, mode, z_total):
             peer_copy(ext[:H], slabs[k - 1][pz - H:])
         if k < n - 1:
             peer_copy(ext[H + pz:], slabs[k + 1][:H])
-        idx = _mirror_rows(k, pz, H, mode, z_total, f.device)
-        out.append(ext if idx is None else ext.index_select(0, idx))
+        out.append(ext if rows[k] is None else ext.index_select(0, rows[k]))
     return out
 
 
@@ -153,12 +152,10 @@ def _ring_matmul_z(x, M, rows_per_dev, out_rows_per_dev, out_stride=None):
     @ x, x being the concatenation of the shards' slabs (rows_per_dev rows
     each). Ring step s: shard k multiplies the slab it holds (shard (k+s) %
     n's) by its block of M, then takes the next shard's slab; peak memory
-    is a slab and the output. ``M`` is a (make, args) pair
-    (``_dev_mat``)."""
+    is a slab and the output. ``M``: the matrix on each shard's device."""
     n = len(x)
     stride = out_rows_per_dev if out_stride is None else out_stride
-    mats = [_dev_mat(*M, xk.device, xk.dtype)[k * stride:k * stride
-                                              + out_rows_per_dev]
+    mats = [M[xk.device][k * stride:k * stride + out_rows_per_dev]
             for k, xk in enumerate(x)]
     acc = [None] * n
     cur = list(x)
@@ -179,11 +176,11 @@ def _ring_matmul_z(x, M, rows_per_dev, out_rows_per_dev, out_stride=None):
 
 def _replicated_from_sharded(x, M, rows_per_dev, home):
     """M @ x (x sharded) on ``home``: each shard's partial product, summed
-    there in shard order. ``M`` is a (make, args) pair."""
+    there in shard order. ``M``: the matrix on each shard's device."""
     acc = None
     for k, xk in enumerate(x):
-        part = _z_contract(_dev_mat(*M, xk.device, xk.dtype)[
-            :, k * rows_per_dev:(k + 1) * rows_per_dev], xk)
+        part = _z_contract(M[xk.device][:, k * rows_per_dev:
+                                        (k + 1) * rows_per_dev], xk)
         if k > 0 or part.device != home:
             part = peer_copy(torch.empty_like(part, device=home), part)
         acc = part if acc is None else acc + part
@@ -194,21 +191,20 @@ def _replicated_from_sharded(x, M, rows_per_dev, home):
 
 def _apply_yx(x, My, Mx):
     """The y then x resize passes of a (z, Y, X, ...) tensor; ``My``, ``Mx``
-    are (make, args) pairs."""
-    My = _dev_mat(*My, x.device, x.dtype)
-    Mx = _dev_mat(*Mx, x.device, x.dtype)
+    the matrices on each device."""
+    My, Mx = My[x.device], Mx[x.device]
     z, Y, X = x.shape[:3]
     t = torch.matmul(My, x.reshape(z, Y, -1))            # (z, h, X * c)
     t = torch.matmul(Mx, t.reshape(z * My.shape[0], X, -1))
     return t.reshape((z, My.shape[0], Mx.shape[0]) + tuple(x.shape[3:]))
 
 
-def _prefilter_yx(x):
+def _prefilter_yx(x, py, px):
     """The x then y cubic-B-spline prefilter passes of a (z, Y, X) slab ->
-    (z, Y + 3, X + 3), as ``ops/warp.bspline_prefilter`` orders them."""
+    (z, Y + 3, X + 3), as ``ops/warp.bspline_prefilter`` orders them;
+    ``py``, ``px`` the prefilter matrices on each device."""
     z, Y, X = x.shape
-    px = _dev_mat(_bspline_prefilter_mat_np, (X,), x.device, x.dtype)
-    py = _dev_mat(_bspline_prefilter_mat_np, (Y,), x.device, x.dtype)
+    py, px = py[x.device], px[x.device]
     t = (x.reshape(z * Y, X) @ px.T).reshape(z, Y, X + 3)
     return torch.matmul(py, t)
 
@@ -246,11 +242,11 @@ def _warp_local(coeff, f1, uvw, z_start, halo_w, size, h, use_kernels):
     return torch.where(oob, f1, out), ok.all()
 
 
-def _median_sharded(d, z_total, use_kernels):
+def _median_sharded(d, rows, use_kernels):
     """5^3 medians of the three increments' slabs, d[k] (3, pz, Y, X),
-    'reflect' at the volume's faces: one launch a shard."""
-    ext = _halo_exchange([x.transpose(0, 1) for x in d], 2, "reflect",
-                         z_total)
+    'reflect' at the volume's faces (``rows``: the halo's mirror rows of
+    each shard): one launch a shard."""
+    ext = _halo_exchange([x.transpose(0, 1) for x in d], 2, rows)
     out = []
     for x in ext:
         xp = F.pad(x.transpose(0, 1), (2, 2, 2, 2), mode="reflect")
@@ -261,15 +257,192 @@ def _median_sharded(d, z_total, use_kernels):
 
 # -- the pyramid --------------------------------------------------------------
 
-def _shard_z(x, pz, devices, dtype):
-    """(Z, ...) array or tensor -> slabs of pz rows on the shards' devices,
-    the last edge-padded."""
-    x = torch.as_tensor(x)
+def _shard_slabs(x, pz, devices):
+    """(Z, ...) tensor -> slabs of pz rows on the shards' devices, the last
+    edge-padded."""
     pad = pz * len(devices) - x.shape[0]
     if pad:
         x = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
-    return [x[k * pz:(k + 1) * pz].to(device=dev, dtype=dtype).contiguous()
+    return [x[k * pz:(k + 1) * pz].to(dev).contiguous()
             for k, dev in enumerate(devices)]
+
+
+def build_sharded_pyramid(key, devices, halo=_DEF_HALO, halo_w=_DEF_HALO_W):
+    """The Z-sharded pyramid of one static configuration
+    (``core/pyramid.pyramid_config_key``) over ``devices``.
+
+    All host work is done here once: the level schedule, each level's
+    split and z offsets, the data exponents on every shard's device, the
+    slab solver's constants (``parallel/spatial.slab_solver``) and every
+    device table (the resize, z and prefilter matrices and the mirror-row
+    gathers). Returns ``pyramid(fixed, moving, uvw, weight) ->
+    (flow, valid)``: fixed/moving (Z,Y,X,C), uvw (Z,Y,X,3) and weight (C,)
+    or (Z,Y,X,C), tensors of the configuration's dtype on the first shard's
+    device, sharded inside; flow (Z,Y,X,3) there and ``valid`` a 0-d bool
+    tensor there (False when a level's warp needed z-samples beyond
+    ``halo_w`` rows). The body uploads nothing and reads nothing back.
+    """
+    (shape, C, alpha, update_lag, iterations, min_level, levels, eta,
+     a_smooth, a_data, const_assumption, dtype_name, use_kernels) = key
+    dtype = getattr(torch, dtype_name)
+    devices = batch_devices(devices)
+    n, home = len(devices), devices[0]
+    distinct = list(dict.fromkeys(devices))
+    Z, Y, X = shape
+    pz_in = -(-Z // n)
+    plan, eff_min_level, _ = level_schedule(shape, eta, levels, min_level)
+    motion_tensor = MOTION_TENSORS[const_assumption]
+    a_vecs = {d: data_exponents(np.asarray(a_data, np.float64), C, dtype, d)
+              for d in distinct}
+    def on_devices(make, *args):
+        M = make(*args)
+        return {d: torch.as_tensor(M, dtype=dtype).to(d) for d in distinct}
+
+    def resize_mats(size_from, size_to, from_rows, to_rows):
+        return (on_devices(_resize_mat, size_from, size_to, 1),
+                on_devices(_resize_mat, size_from, size_to, 2),
+                on_devices(_z_mat, size_from, size_to, from_rows, to_rows))
+
+    def mirror_rows(pz, H, mode, z_total):
+        return [_mirror_rows(k, pz, H, mode, z_total, d)
+                for k, d in enumerate(devices)]
+
+    steps = []
+    prev = dict(size=(Z, Y, X), sharded=True, pz=pz_in)
+    for i, size, h in plan:
+        sharded = size[0] >= 4 * n
+        pz_l = -(-size[0] // n) if sharded else size[0]
+        rows = pz_l * n if sharded else size[0]
+        step = dict(size=size, h=h, sharded=sharded, pz=pz_l,
+                    alpha=level_alpha(alpha, i, eff_min_level, eta),
+                    z_offs=[k * pz_l for k in range(n)],
+                    input=resize_mats((Z, Y, X), size, pz_in * n, rows))
+        if steps:
+            step["flow"] = resize_mats(
+                prev["size"], size,
+                prev["pz"] * n if prev["sharded"] else prev["size"][0], rows)
+        if sharded:
+            hz, hy, hx = h
+            step["pre"] = on_devices(_prefilter_z_mat, size[0], pz_l, n,
+                                     halo_w)
+            step["pre_yx"] = [on_devices(_bspline_prefilter_mat_np, s)
+                              for s in size[1:]]
+            step["halo_rows"] = mirror_rows(pz_l, halo, "symmetric", size[0])
+            if min(size) > 5:
+                step["median_rows"] = mirror_rows(pz_l, 2, "reflect",
+                                                  size[0])
+            step["solve"] = slab_solver(
+                step["z_offs"], size[0], step["alpha"], iterations,
+                update_lag, a_vecs, a_smooth, hx, hy, hz, dtype, use_kernels)
+        steps.append(step)
+        prev = step
+    final = None
+    if eff_min_level > 0 or prev["size"] != (Z, Y, X) or not prev["sharded"]:
+        final = resize_mats(
+            prev["size"], (Z, Y, X),
+            prev["pz"] * n if prev["sharded"] else prev["size"][0],
+            pz_in * n)
+
+    def resize(x, mats, src, to_sharded, pz_to):
+        """Level ``src``'s volume (sharded slabs or replicated) resized by
+        ``mats`` (y, x, z): z first, then the local y and x passes."""
+        My, Mx, Mz = mats
+        if src["sharded"] and to_sharded:
+            z = _ring_matmul_z(x, Mz, src["pz"], pz_to)
+        elif src["sharded"]:
+            z = _replicated_from_sharded(x, Mz, src["pz"], home)
+        elif to_sharded:
+            on = replicate(x, devices)
+            z = [_z_contract(Mz[dev][k * pz_to:(k + 1) * pz_to], on[dev])
+                 for k, dev in enumerate(devices)]
+        else:
+            z = _z_contract(Mz[home], x)
+        if to_sharded:
+            return [_apply_yx(zk, My, Mx) for zk in z]
+        return _apply_yx(z, My, Mx)
+
+    def pyramid(fixed, moving, uvw, weight):
+        fixed_s, moving_s, uvw_s = (_shard_slabs(x, pz_in, devices)
+                                    for x in (fixed, moving, uvw))
+        if weight.dim() == 1:
+            weight_s = [weight.to(d).reshape(1, 1, 1, C)
+                        .expand(pz_in, Y, X, C).contiguous() for d in devices]
+        else:
+            weight_s = _shard_slabs(weight, pz_in, devices)
+        inputs = dict(size=(Z, Y, X), sharded=True, pz=pz_in)
+        flow = None
+        src = inputs
+        valid = [torch.ones((), dtype=torch.bool, device=d) for d in devices]
+        for s, step in enumerate(steps):
+            size, sharded, pz_l = step["size"], step["sharded"], step["pz"]
+            f1, f2, wt = (resize(x, step["input"], inputs, sharded, pz_l)
+                          for x in (fixed_s, moving_s, weight_s))
+            if s == 0:
+                flow = resize(uvw_s, step["input"], inputs, sharded, pz_l)
+            else:
+                flow = resize(flow, step["flow"], src, sharded, pz_l)
+            src = step
+
+            if not sharded:
+                u, v, w = level_step(
+                    f1, f2, *(add_boundary(flow[..., c]) for c in range(3)),
+                    wt, step["h"], step["alpha"], motion_tensor, iterations,
+                    update_lag, a_vecs[home], a_smooth, use_kernels)
+                flow = torch.stack([u[_I], v[_I], w[_I]], dim=-1)
+                continue
+
+            hz, hy, hx = step["h"]
+            z_offs = step["z_offs"]
+            # -- warp the moving slabs by the running flow ------------------
+            warped = [[] for _ in range(n)]
+            for c in range(C):
+                coeff = _ring_matmul_z([_prefilter_yx(x[..., c],
+                                                      *step["pre_yx"])
+                                        for x in f2], step["pre"], pz_l,
+                                       pz_l + 2 * halo_w + 4,
+                                       out_stride=pz_l)
+                for k in range(n):
+                    out, ok = _warp_local(coeff[k], f1[k][..., c], flow[k],
+                                          z_offs[k], halo_w, size, step["h"],
+                                          use_kernels)
+                    warped[k].append(out)
+                    valid[k] = valid[k] & ok
+            tmp = [torch.stack(wk, dim=-1) for wk in warped]
+
+            # -- motion tensor on halo-extended slabs -----------------------
+            f1e = _halo_exchange(f1, halo, step["halo_rows"])
+            tmpe = _halo_exchange(tmp, halo, step["halo_rows"])
+            crop = slice(halo, halo + pz_l + 2)
+            Jc = [torch.stack([
+                torch.stack([j[crop] for j in motion_tensor(
+                    a[..., c], b[..., c], hz, hy, hx)])
+                for c in range(C)], dim=1) for a, b in zip(f1e, tmpe)]
+            wt_r = [F.pad(x.movedim(-1, 0), (1, 1, 1, 1, 1, 1)) for x in wt]
+
+            # -- solve on the slabs -----------------------------------------
+            base = exchange_ghosts([
+                torch.stack([add_boundary(x[..., c]) for c in range(3)])
+                for x in flow])
+            for b, z_off in zip(base, z_offs):
+                edge_fix(b, z_off, size[0])
+            duvw = step["solve"](Jc, wt_r, base)
+            d = [x[(slice(None),) + _I] for x in duvw]      # (3, pz, Y, X)
+            if min(size) > 5:
+                d = _median_sharded(d, step["median_rows"], use_kernels)
+            flow = [x + dk.movedim(0, -1) for x, dk in zip(flow, d)]
+
+        # -- the full-resolution flow, gathered onto the first shard ----------
+        if final is not None:
+            flow = resize(flow, final, src, True, pz_in)
+        out = torch.empty((n * pz_in, Y, X, 3), dtype=dtype, device=home)
+        for k, fk in enumerate(flow):
+            peer_copy(out[k * pz_in:(k + 1) * pz_in], fk)
+        ok = torch.empty(n, dtype=torch.bool, device=home)
+        for k, vk in enumerate(valid):
+            peer_copy(ok[k], vk)
+        return out[:Z], ok.all()
+
+    return pyramid
 
 
 def get_displacement_sharded(fixed, moving, devices=None,
@@ -286,150 +459,40 @@ def get_displacement_sharded(fixed, moving, devices=None,
     shards (``batch_devices``; None: every card when ``device`` is CUDA,
     None meaning 'cuda'). ``weight`` a per-channel vector (C,) or a volume
     (Z,Y,X,C), sharded with the inputs (None: 1/C). ``use_kernels=False``
-    runs the kernels' plain versions. Returns (flow (Z,Y,X,3) on the first
-    shard's device, valid): ``valid`` (0-d bool tensor) is False when a
-    level's warp needed z-samples beyond ``halo_w`` rows; recompute that
-    volume on one device then.
+    runs the kernels' plain versions. On CUDA the pyramid replays one CUDA
+    graph per configuration and device list (``_graph.BodyGraph`` of the
+    body, kind ``"sharded"``, captured on the first call, across the cards
+    the shards sit on; ``parallel.executors.clear_frame_graphs`` frees it);
+    on the CPU it runs eagerly (``build_sharded_pyramid``).
+    Returns (flow (Z,Y,X,3) on the first shard's device, valid): ``valid``
+    (0-d bool tensor) is False when a level's warp needed z-samples beyond
+    ``halo_w`` rows; recompute that volume on one device then.
     """
     devices = batch_devices(devices, device)
-    n, home = len(devices), devices[0]
-    fixed, moving = torch.as_tensor(fixed), torch.as_tensor(moving)
+    home = devices[0]
+    fixed, moving = (torch.as_tensor(x).to(device=home, dtype=dtype)
+                     for x in (fixed, moving))
     if fixed.dim() == 3:
         fixed, moving = fixed[..., None], moving[..., None]
     Z, Y, X, C = fixed.shape
-    pz_in = -(-Z // n)
-
-    fixed_s = _shard_z(fixed, pz_in, devices, dtype)
-    moving_s = _shard_z(moving, pz_in, devices, dtype)
     if uvw is None:
-        uvw_s = [torch.zeros((pz_in, Y, X, 3), dtype=dtype, device=d)
-                 for d in devices]
+        uvw = torch.zeros((Z, Y, X, 3), dtype=dtype, device=home)
     else:
-        uvw_s = _shard_z(uvw, pz_in, devices, dtype)
+        uvw = torch.as_tensor(uvw).to(device=home, dtype=dtype)
     if weight is None:
-        weight_s = [torch.full((pz_in, Y, X, C), 1.0 / C, dtype=dtype,
-                               device=d) for d in devices]
-    elif torch.as_tensor(weight).dim() == 1:
-        weight_s = [torch.as_tensor(weight).to(device=d, dtype=dtype)
-                    .reshape(1, 1, 1, C).expand(pz_in, Y, X, C)
-                    .contiguous() for d in devices]
+        weight = torch.full((C,), 1.0 / C, dtype=dtype, device=home)
     else:
-        weight_s = _shard_z(weight, pz_in, devices, dtype)
-
-    plan, eff_min_level, _ = level_schedule((Z, Y, X), eta, levels,
-                                            min_level)
-    motion_tensor = MOTION_TENSORS[const_assumption]
-    a_data_arr = np.asarray(a_data, np.float64).reshape(-1)
-    if a_data_arr.size == 1:
-        a_data_arr = np.repeat(a_data_arr, C)
-    a_home = data_exponents(a_data_arr, C, dtype, home)
-
-    def from_input(slabs, size, sharded, pz_l):
-        """A level volume from the full-resolution sharded input (z first,
-        then the local y and x passes on the smaller z-extent)."""
-        My, Mx = ((_resize_mat, ((Z, Y, X), size, a)) for a in (1, 2))
-        Mz = (_z_mat, ((Z, Y, X), size, pz_in * n,
-                       pz_l * n if sharded else size[0]))
-        if sharded:
-            return [_apply_yx(z, My, Mx)
-                    for z in _ring_matmul_z(slabs, Mz, pz_in, pz_l)]
-        return _apply_yx(_replicated_from_sharded(slabs, Mz, pz_in, home),
-                         My, Mx)
-
-    def resize_flow(x, prev, size_to, to_sharded, pz_to):
-        """Between-level flow resize of the (…, 3) interior flow."""
-        size_from, from_sharded, pz_from = prev
-        My, Mx = ((_resize_mat, (size_from, size_to, a)) for a in (1, 2))
-        Mz = (_z_mat, (size_from, size_to,
-                       pz_from * n if from_sharded else size_from[0],
-                       pz_to * n if to_sharded else size_to[0]))
-        if from_sharded and to_sharded:
-            z = _ring_matmul_z(x, Mz, pz_from, pz_to)
-        elif from_sharded:
-            z = _replicated_from_sharded(x, Mz, pz_from, home)
-        elif to_sharded:
-            on = replicate(x, devices)
-            z = [_z_contract(_dev_mat(*Mz, dev, dtype)[
-                k * pz_to:(k + 1) * pz_to], on[dev])
-                for k, dev in enumerate(devices)]
-        else:
-            z = _z_contract(_dev_mat(*Mz, home, dtype), x)
-        if to_sharded:
-            return [_apply_yx(zk, My, Mx) for zk in z]
-        return _apply_yx(z, My, Mx)
-
-    flow = None
-    prev = None
-    valid = [torch.ones((), dtype=torch.bool, device=d) for d in devices]
-    for step, (i, size, h) in enumerate(plan):
-        sharded = size[0] >= 4 * n
-        pz_l = -(-size[0] // n) if sharded else size[0]
-        alpha_l = level_alpha(alpha, i, eff_min_level, eta)
-        f1 = from_input(fixed_s, size, sharded, pz_l)
-        f2 = from_input(moving_s, size, sharded, pz_l)
-        wt = from_input(weight_s, size, sharded, pz_l)
-        if step == 0:
-            flow = from_input(uvw_s, size, sharded, pz_l)
-        else:
-            flow = resize_flow(flow, prev, size, sharded, pz_l)
-        prev = (size, sharded, pz_l)
-
-        if not sharded:
-            u, v, w = level_step(
-                f1, f2, *(add_boundary(flow[..., c]) for c in range(3)), wt,
-                h, alpha_l, motion_tensor, iterations, update_lag, a_home,
-                a_smooth, use_kernels)
-            flow = torch.stack([u[_I], v[_I], w[_I]], dim=-1)
-            continue
-
-        hz, hy, hx = h
-        z_offs = [k * pz_l for k in range(n)]
-        # -- warp the moving slabs by the running flow ----------------------
-        Mpre = (_prefilter_z_mat, (size[0], pz_l, n, halo_w))
-        warped = [[] for _ in range(n)]
-        for c in range(C):
-            coeff = _ring_matmul_z([_prefilter_yx(s[..., c]) for s in f2],
-                                   Mpre, pz_l, pz_l + 2 * halo_w + 4,
-                                   out_stride=pz_l)
-            for k in range(n):
-                out, ok = _warp_local(coeff[k], f1[k][..., c], flow[k],
-                                      z_offs[k], halo_w, size, h,
-                                      use_kernels)
-                warped[k].append(out)
-                valid[k] = valid[k] & ok
-        tmp = [torch.stack(wk, dim=-1) for wk in warped]
-
-        # -- motion tensor on halo-extended slabs ---------------------------
-        f1e = _halo_exchange(f1, halo, "symmetric", size[0])
-        tmpe = _halo_exchange(tmp, halo, "symmetric", size[0])
-        crop = slice(halo, halo + pz_l + 2)
-        Jc = [torch.stack([
-            torch.stack([j[crop] for j in motion_tensor(
-                a[..., c], b[..., c], hz, hy, hx)])
-            for c in range(C)], dim=1) for a, b in zip(f1e, tmpe)]
-        wt_r = [F.pad(x.movedim(-1, 0), (1, 1, 1, 1, 1, 1)) for x in wt]
-
-        # -- solve on the slabs ---------------------------------------------
-        base = exchange_ghosts([
-            torch.stack([add_boundary(x[..., c]) for c in range(3)])
-            for x in flow])
-        for b, z_off in zip(base, z_offs):
-            edge_fix(b, z_off, size[0])
-        duvw = solve_slabs(Jc, wt_r, base, z_offs, size[0], alpha_l,
-                           iterations, update_lag, a_data_arr, a_smooth, hx,
-                           hy, hz, use_kernels)
-        d = [x[(slice(None),) + _I] for x in duvw]          # (3, pz, Y, X)
-        if min(size) > 5:
-            d = _median_sharded(d, size[0], use_kernels)
-        flow = [x + dk.movedim(0, -1) for x, dk in zip(flow, d)]
-
-    # -- the full-resolution flow, gathered onto the first shard ---------------
-    if eff_min_level > 0 or prev[0] != (Z, Y, X) or not prev[1]:
-        flow = resize_flow(flow, prev, (Z, Y, X), True, pz_in)
-    out = torch.empty((n * pz_in, Y, X, 3), dtype=dtype, device=home)
-    for k, fk in enumerate(flow):
-        peer_copy(out[k * pz_in:(k + 1) * pz_in], fk)
-    ok = torch.empty(n, dtype=torch.bool, device=home)
-    for k, vk in enumerate(valid):
-        peer_copy(ok[k], vk)
-    return out[:Z], ok.all()
+        weight = torch.as_tensor(weight).to(device=home, dtype=dtype)
+    key = pyramid_config_key((Z, Y, X), C, alpha, update_lag, iterations,
+                             min_level, levels, eta, a_smooth, a_data,
+                             const_assumption, dtype, use_kernels)
+    inputs = (fixed, moving, uvw, weight)
+    if home.type == "cuda":
+        graph = _graph.cached(
+            "sharded", (key, halo, halo_w, tuple(weight.shape)),
+            tuple(devices),
+            lambda: _graph.BodyGraph(
+                build_sharded_pyramid(key, devices, halo, halo_w),
+                [(x.shape, dtype) for x in inputs], home, devices))
+        return graph.run(*inputs)
+    return build_sharded_pyramid(key, devices, halo, halo_w)(*inputs)

@@ -21,7 +21,12 @@ host launch on a warm call, each call's flow the caller's own, ``uvw=None``
 after a ``uvw`` starting from zeros, a weight vector and a weight volume,
 another configuration replacing the graph; the cc prealignment's graph
 bit-equal to the eager ``prealign``, and the cc batch through the batched
-executor bit-equal to the sequential one, at both ``use_kernels``.
+executor bit-equal to the sequential one, at both ``use_kernels``; over
+[cuda:0, cuda:0], the Z-sharded step's graph bit-equal to the eager sharded
+body at both a_smooth, a warm call one replay with no host launch, the
+spatial executor one replay a frame bit-equal to the eager body and warp,
+and a sharded capture meeting an upload raising; ``compute_flow_level``'s
+and ``compute_flow``'s graphs bit-equal to their eager bodies on the card.
 """
 
 import numpy as np
@@ -283,4 +288,135 @@ def test_cc_batch_replay_equals_sequential(card, use_kernels):
     assert [g.replays for g in tex.prealign_graphs()] == [3]
     for a, b in zip(seq, bat):
         assert torch.equal(a, b)
+    tex.clear_frame_graphs()
+
+
+def _sharded_eager(fixed, moving, uvw, weight, devices, **kw):
+    """The eager Z-sharded body of ``get_displacement_sharded``'s
+    configuration."""
+    from flowreg3d_tpu_torch.core.pyramid import pyramid_config_key
+    from flowreg3d_tpu_torch.parallel import spatial_pyramid as tsp
+
+    key = pyramid_config_key(tuple(fixed.shape[:3]), fixed.shape[3], **kw)
+    return tsp.build_sharded_pyramid(key, devices)(fixed, moving, uvw,
+                                                   weight)
+
+
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+def test_sharded_step_replays_its_graph(card, a_smooth):
+    from flowreg3d_tpu_torch import _ext
+    from flowreg3d_tpu_torch.parallel import spatial_pyramid as tsp
+
+    video, ref = _frames(T=2, C=2, shape=(24, 32, 36))
+    fixed, moving = (torch.from_numpy(a).to(card) for a in (ref, video[1]))
+    devices = [card] * 2
+    kw = dict(FLOW, a_smooth=a_smooth)
+    uvw = torch.full(fixed.shape[:3] + (3,), 0.2, device=card)
+    half = torch.full((2,), 0.5, device=card)
+    tex.clear_frame_graphs()
+    flow, valid = tsp.get_displacement_sharded(fixed, moving, uvw=uvw,
+                                               devices=devices, **kw)
+    (graph,) = tex.graphs("sharded")
+    assert graph.replays == 1 and bool(valid)
+    want, ok = _sharded_eager(fixed, moving, uvw, half, devices, **kw)
+    assert torch.equal(flow, want) and bool(ok)
+    # a warm call: one replay, no kernel launched from the host
+    counters = _ext.launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    again, _ = tsp.get_displacement_sharded(fixed, moving, devices=devices,
+                                            **kw)
+    assert {k: f.launches for k, f in counters.items()} == before
+    assert graph.replays == 2 and graph.launches["map_coords_f32"] > 0
+    slab = ("sor_halfsweep_const_f32" if a_smooth == 1.0
+            else "sor_halfsweep_psi_f32")
+    assert graph.launches[slab] > 0 and graph.copies > 0
+    want, _ = _sharded_eager(fixed, moving, torch.zeros_like(uvw), half,
+                             devices, **kw)
+    assert torch.equal(again, want)
+    tex.clear_frame_graphs()
+    assert tex.graphs("sharded") == []
+
+
+def test_spatial_executor_replays_a_graph_a_frame(card):
+    from flowreg3d_tpu_torch.ops.warp import warp
+
+    video, ref = _frames(T=3, C=1, shape=(24, 32, 36))
+    fp = dict(FLOW, a_smooth=0.5)
+    w_init = np.full(ref.shape[:3] + (3,), 0.1, np.float32)
+    tex.clear_frame_graphs()
+    ex = tex.SpatialExecutor3D(devices=[card] * 2)
+    regs, flows = ex.process_batch(video, video, ref, ref, w_init,
+                                   flow_params=fp)
+    (graph,) = tex.graphs("sharded")
+    assert graph.replays == 3 and ex.single_device_frames == 0
+    ref_t = torch.from_numpy(ref).to(card)
+    one = torch.ones(1, device=card)
+    for t in range(3):
+        frame = torch.from_numpy(video[t]).to(card)
+        want, ok = _sharded_eager(ref_t, frame, torch.from_numpy(w_init)
+                                  .to(card), one, [card] * 2, **fp)
+        assert bool(ok) and torch.equal(flows[t], want)
+        assert torch.equal(regs[t], warp(frame, want[..., 0], want[..., 1],
+                                         want[..., 2], ref_t, 3, True))
+    tex.clear_frame_graphs()
+
+
+def test_sharded_capture_with_upload_raises(card, monkeypatch):
+    from flowreg3d_tpu_torch.parallel import spatial_pyramid as tsp
+
+    video, ref = _frames(T=1, C=1, shape=(24, 32, 36))
+    real = tsp._warp_local
+
+    def uploading_warp(*args, **kwargs):
+        out, ok = real(*args, **kwargs)
+        return out, ok & torch.tensor(True, device=out.device)
+
+    monkeypatch.setattr(tsp, "_warp_local", uploading_warp)
+    tex.clear_frame_graphs()
+    with pytest.raises(RuntimeError):
+        tsp.get_displacement_sharded(ref, video[0], devices=[card] * 2,
+                                     **dict(FLOW, a_smooth=1.0))
+    tex.clear_frame_graphs()
+
+
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+def test_level_and_2d_solvers_replay_their_graphs(card, a_smooth):
+    from flowreg3d_tpu_torch import _ext
+    from flowreg3d_tpu_torch.core import solver, solver2d
+
+    rng = np.random.default_rng(2)
+    shape, C = (12, 20, 22), 2
+    J = [torch.from_numpy(rng.random((C,) + shape).astype(np.float32))
+         .to(card) for _ in range(10)]
+    weight = torch.full((C,) + shape, 0.5, device=card)
+    u, v, w = (torch.from_numpy(0.1 * rng.standard_normal(shape)
+                                .astype(np.float32)).to(card)
+               for _ in range(3))
+    args = ((1.5, 1.2, 1.0), 6, 3, [0.45, 0.3], a_smooth, 1.1, 1.2, 1.3)
+    tex.clear_frame_graphs()
+    got = solver.compute_flow_level_cl(J, weight, u, v, w, *args)
+    want = solver.solve_level_cl(J, weight, u, v, w, *args)
+    counters = _ext.launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    again = solver.compute_flow_level_cl(J, weight, u, v, w, *args)
+    assert {k: f.launches for k, f in counters.items()} == before
+    (graph,) = tex.graphs("level")
+    assert graph.replays == 2
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+    J2 = [rng.random((40, 44, C)) for _ in range(6)]
+    w2, u2 = np.ones((40, 44, C)), np.zeros((40, 44))
+    kw = dict(alpha=(0.5, 0.5), iterations=6, update_lag=2, a_smooth=a_smooth)
+    for dtype in (np.float32, np.float64):
+        J2d = [j.astype(dtype) for j in J2]
+        got = solver2d.compute_flow(J2d, w2.astype(dtype), u2.astype(dtype),
+                                    u2.astype(dtype), device=card, **kw)
+        solve = solver2d.flow2d_solver(
+            (40, 44), C, (0.5, 0.5), 6, 2, 0.45, a_smooth, 1.0, 1.0,
+            getattr(torch, np.dtype(dtype).name), card)
+        want = solve(*(torch.from_numpy(np.asarray(x, dtype)).to(card)
+                       for x in (np.stack(J2d), w2, u2, u2)))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [g.replays for g in tex.graphs("flow2d")] == [1]
     tex.clear_frame_graphs()

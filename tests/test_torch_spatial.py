@@ -24,6 +24,10 @@ each entry a shard of its own, one process).
   frame on one device (counted in ``get_info``), bit-equal to the
   sequential executor there; the spatial pipeline against the sequential
   one.
+- The bodies the CUDA graphs capture (the sharded pyramid and frame, the
+  sharded level solve, ``compute_flow_level``, ``compute_flow``), warm: no
+  upload and no host read, the first call's bits; the entry points give the
+  bodies' bits, and a missing weight or initial flow that of 1/C or zeros.
 - Slow tier: the port's sharded pyramid against JAX's
   ``get_displacement_sharded`` on the virtual 4-device mesh.
 """
@@ -84,7 +88,8 @@ def test_halo_exchange_matches_np_pad(mode, H):
     x = rng.standard_normal((Z, 4, 3)).astype(np.float32)
     xp = np.concatenate([x, np.repeat(x[-1:], pz * n - Z, 0)])
     want = np.pad(x, ((H, pz * n + H - Z), (0, 0), (0, 0)), mode=mode)
-    got = tpyr._halo_exchange(_slabs(xp, pz, n), H, mode, Z)
+    rows = [tpyr._mirror_rows(k, pz, H, mode, Z, CPU) for k in range(n)]
+    got = tpyr._halo_exchange(_slabs(xp, pz, n), H, rows)
     for k, g in enumerate(got):
         rows = slice(k * pz, k * pz + pz + 2 * H)
         np.testing.assert_array_equal(g.numpy(), want[rows])
@@ -98,7 +103,7 @@ def test_ring_matmul_and_replicated_sum_match_dense(n, stride):
     M = rng.standard_normal((step * (n - 1) + out_rows, n * rows))
     x = rng.standard_normal((n * rows, 3, 2)).astype(np.float32)
     want = np.einsum("oi,i...->o...", M.astype(np.float32), x)
-    spec = (lambda: M, ())               # a (make, args) matrix
+    spec = {CPU: torch.from_numpy(M.astype(np.float32))}   # on each device
     got = tpyr._ring_matmul_z(_slabs(x, rows, n), spec, rows, out_rows,
                               stride)
     for k, g in enumerate(got):
@@ -325,3 +330,163 @@ def test_sharded_pyramid_matches_jax_sharded():
     assert diff.mean() < 2e-4, diff.mean()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=6e-3,
                                atol=6e-3)
+
+
+# -- the compiled programs' bodies: capturable --------------------------------
+
+def _no_host_traffic(monkeypatch):
+    """Refuse every host-to-tensor copy and every read of a tensor's value
+    on the host (what a CUDA-graph capture refuses) until ``undo``."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("host traffic inside a warm body")
+
+    for name in ("as_tensor", "tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, refuse)
+    for name in ("item", "__bool__", "tolist", "numpy", "cpu"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+
+
+def _key(shape, C, a_smooth, **over):
+    from flowreg3d_tpu_torch.core.pyramid import pyramid_config_key
+
+    kw = dict(PARAMS, a_smooth=a_smooth, **over)
+    return pyramid_config_key(shape, C, **kw)
+
+
+def _sharded_inputs(C, seed=5, shape=(18, 16, 20)):
+    rng = np.random.default_rng(seed)
+    fixed = gaussian_filter(rng.random(shape + (C,)), (1, 1.5, 1.5, 0))
+    moving = np.roll(fixed, (1, 2, -1), axis=(0, 1, 2))
+    uvw = 0.3 * rng.standard_normal(shape + (3,))
+    weight = 0.5 + rng.random(shape + (C,))
+    return shape, [torch.from_numpy(a.astype(np.float32))
+                   for a in (fixed, moving, uvw, weight)]
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+@pytest.mark.parametrize("C", [1, 2])
+def test_warm_sharded_pyramid_uploads_nothing(monkeypatch, n, a_smooth, C):
+    """The sharded pyramid's body (what its CUDA graph captures), warm:
+    no upload, no host read, the first call's bits; with a weight volume
+    and with a weight vector."""
+    shape, (fixed, moving, uvw, weight) = _sharded_inputs(C)
+    pyramid = tpyr.build_sharded_pyramid(_key(shape, C, a_smooth),
+                                         [CPU] * n)
+    vec = torch.linspace(0.4, 0.6, C)
+    first = [pyramid(fixed, moving, uvw, w) for w in (weight, vec)]
+    _no_host_traffic(monkeypatch)
+    again = [pyramid(fixed, moving, uvw, w) for w in (weight, vec)]
+    monkeypatch.undo()
+    for (f0, v0), (f1, v1) in zip(first, again):
+        assert torch.equal(f0, f1) and torch.equal(v0, v1)
+        assert f0.shape == shape + (3,) and bool(v0)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+@pytest.mark.parametrize("C", [1, 2])
+def test_warm_sharded_level_uploads_nothing(monkeypatch, n, a_smooth, C):
+    J, weight, u, v, w = (
+        [torch.from_numpy(x) for x in a] if isinstance(a, tuple)
+        else torch.from_numpy(a) for a in _level_problem((11, 9, 10), C))
+    key = tsp.level_config_key((11, 9, 10), C, (1.2, 1.0, 0.8), 5, 2,
+                               [0.45], a_smooth, 1.0, 1.1, 1.2,
+                               torch.float32, True)
+    level = tsp.build_level_sharded(key, [CPU] * n)
+    first = level(J, weight, u, v, w)
+    _no_host_traffic(monkeypatch)
+    again = level(J, weight, u, v, w)
+    monkeypatch.undo()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    # the public entry runs the same body
+    got = tsp.compute_flow_level_sharded(
+        J, weight, u, v, w, (1.2, 1.0, 0.8), 5, 2, np.array([0.45]), 1.0,
+        1.1, 1.2, devices=[CPU] * n, a_smooth=a_smooth)
+    assert all(torch.equal(a, b) for a, b in zip(first, got))
+
+
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+@pytest.mark.parametrize("C", [1, 2])
+def test_warm_level_and_2d_solvers_upload_nothing(monkeypatch, a_smooth, C):
+    """The bodies the CUDA graphs capture (compute_flow_level's and
+    compute_flow's), warm: no upload, no host read, the bits of the public
+    entry points on the CPU."""
+    from flowreg3d_tpu_torch.core.solver import (compute_flow_level_cl,
+                                                 level_solver)
+    from flowreg3d_tpu_torch.core.solver2d import (compute_flow,
+                                                   flow2d_solver)
+
+    J, weight, u, v, w = (
+        [torch.from_numpy(x).movedim(-1, 0) for x in a]
+        if isinstance(a, tuple) else torch.from_numpy(a)
+        for a in _level_problem((9, 10, 11), C))
+    weight = weight.movedim(-1, 0)
+    args = ((1.5, 1.2, 1.0), 5, 2)
+    tail = (a_smooth, 1.1, 1.2, 1.3)
+    want = compute_flow_level_cl(J, weight, u, v, w, *args, [0.45], *tail)
+    solve = level_solver(u.shape, C, *args, [0.45], *tail, torch.float32,
+                         CPU)
+    Jc = torch.stack(J)
+    rng = np.random.default_rng(4)
+    J2 = [rng.random((12, 13, C)).astype(np.float32) for _ in range(6)]
+    w2 = np.ones((12, 13, C), np.float32)
+    u2 = np.zeros((12, 13), np.float32)
+    kw2 = dict(alpha=(0.5, 0.5), iterations=6, update_lag=2, a_data=0.45,
+               a_smooth=a_smooth)
+    want2 = compute_flow(J2, w2, u2, u2, device="cpu", **kw2)
+    solve2 = flow2d_solver((12, 13), C, (0.5, 0.5), 6, 2, 0.45, a_smooth,
+                           1.0, 1.0, torch.float32, CPU)
+    Jt, w2t, u2t = (torch.from_numpy(np.stack(J2)), torch.from_numpy(w2),
+                    torch.from_numpy(u2))
+    solve(Jc, weight, u, v, w)
+    solve2(Jt, w2t, u2t, u2t)
+    _no_host_traffic(monkeypatch)
+    got = solve(Jc, weight, u, v, w)
+    got2 = solve2(Jt, w2t, u2t, u2t)
+    monkeypatch.undo()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got2, want2))
+
+
+@pytest.mark.parametrize("a_smooth", [1.0, 0.5])
+def test_sharded_split_keeps_the_entry_points_bits(a_smooth):
+    """The builder/body split against the entry point it serves:
+    ``get_displacement_sharded`` gives the body's bits; its weight None
+    (1/C) gives the bits of the same weights as a vector and as a volume
+    (the volume sharded as before the split), and ``uvw=None`` those of
+    zeros; the spatial executor's frame is the body's flow and the warp of
+    the raw frame by it."""
+    from flowreg3d_tpu_torch.ops.warp import warp
+
+    C = 2
+    shape, (fixed, moving, uvw, weight) = _sharded_inputs(C, seed=6)
+    devices = [CPU] * 3
+    key = _key(shape, C, a_smooth, a_data=(0.45, 0.45))
+    body = tpyr.build_sharded_pyramid(key, devices)
+    kw = dict(PARAMS, a_smooth=a_smooth, devices=devices)
+    flow, valid = tpyr.get_displacement_sharded(fixed, moving, uvw=uvw,
+                                                weight=weight, **kw)
+    want, ok = body(fixed, moving, uvw, weight)
+    assert torch.equal(flow, want) and bool(valid) and bool(ok)
+    zeros = torch.zeros_like(uvw)
+    half = torch.full((C,), 0.5)
+    runs = [tpyr.get_displacement_sharded(fixed, moving, **kw)[0],
+            tpyr.get_displacement_sharded(fixed, moving, uvw=zeros,
+                                          weight=half, **kw)[0],
+            tpyr.get_displacement_sharded(
+                fixed.numpy(), moving.numpy(), uvw=zeros.numpy(),
+                weight=np.full(shape + (C,), 0.5, np.float32), **kw)[0],
+            body(fixed, moving, zeros, half)[0]]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+
+    ex = SpatialExecutor3D(device="cpu", devices=devices)
+    raw = fixed.flip(0)
+    inputs = (fixed, fixed, weight, raw, moving, uvw)
+    flow_out, valid, reg_out = ex._frame_fn(key, 3, inputs)(*inputs)
+    assert bool(valid)
+    want, _ = body(fixed, moving, uvw, weight)
+    assert torch.equal(flow_out, want)
+    assert torch.equal(reg_out, warp(raw, want[..., 0], want[..., 1],
+                                     want[..., 2], fixed, 3, True))
+
