@@ -35,7 +35,8 @@ The cache keeps at most one graph of a kind (``"frame"``, ``"pyramid"``,
 private memory pools (at 64x512x512 the pyramid and a frame's warp take 1.55
 GiB at ``OFOptions()`` defaults and 7.43 GiB at the direct API's options,
 PERF.md), so a repeated configuration replays its graph, another replaces
-it, and ``clear`` frees them all.
+it, and ``clear`` frees them all. ``capture_totals`` tallies the captures
+and their seconds by kind since the process started; ``clear`` leaves it.
 """
 
 import contextlib
@@ -44,6 +45,7 @@ import time
 import torch
 
 from flowreg3d_tpu_torch import _ext
+from flowreg3d_tpu_torch._trace import span
 
 
 # Host-call counters besides the kernel wrappers' (``_ext.launch_counters``)
@@ -150,6 +152,8 @@ class BodyGraph(CapturedGraph):
 
 # (kind, device) -> (configuration key, graph)
 _CACHE = {}
+# kind -> [captures, seconds], over the process
+_CAPTURES = {}
 
 
 def cached(kind, key, device, make):
@@ -160,8 +164,20 @@ def cached(kind, key, device, make):
     entry = _CACHE.get((kind, device))
     if entry is None or entry[0] != key:
         _CACHE.pop((kind, device), None)
-        entry = _CACHE[(kind, device)] = (key, make())
+        t = time.perf_counter()
+        with span("flowreg3d.graph_capture"):
+            graph = make()
+        tally = _CAPTURES.setdefault(kind, [0, 0.0])
+        tally[0] += 1
+        tally[1] += time.perf_counter() - t
+        entry = _CACHE[(kind, device)] = (key, graph)
     return entry[1]
+
+
+def capture_totals():
+    """{kind: (captures, seconds)} of every capture ``cached`` made since
+    the process started."""
+    return {k: (n, s) for k, (n, s) in _CAPTURES.items()}
 
 
 def graphs(kind):

@@ -11,6 +11,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from flowreg3d_tpu_torch._trace import span
 from flowreg3d_tpu_torch.pipeline.corrector import (BatchMotionCorrector,
                                                     RegistrationConfig)
 from flowreg3d_tpu_torch.pipeline.of_options import OFOptions, OutputFormat
@@ -62,17 +63,18 @@ def compensate_arr(c1, c_ref, options: Optional[OFOptions] = None,
         corrector.register_progress_callback(progress_callback)
     corrector.run()
 
-    c_reg = corrector.video_writer.get_array()
-    w = corrector.w_writer.get_array()
+    with span("flowreg3d.output"):
+        c_reg = corrector.video_writer.get_array()
+        w = corrector.w_writer.get_array()
 
-    if options.output_typename in _DTYPE_MAP:
-        out_dtype = _DTYPE_MAP[options.output_typename]
-        if np.issubdtype(out_dtype, np.integer):
-            info = np.iinfo(out_dtype)
-            c_reg = np.clip(np.rint(c_reg), info.min,
-                            info.max).astype(out_dtype)
-        else:
-            c_reg = c_reg.astype(out_dtype)
+        if options.output_typename in _DTYPE_MAP:
+            out_dtype = _DTYPE_MAP[options.output_typename]
+            if np.issubdtype(out_dtype, np.integer):
+                info = np.iinfo(out_dtype)
+                c_reg = np.clip(np.rint(c_reg), info.min,
+                                info.max).astype(out_dtype)
+            else:
+                c_reg = c_reg.astype(out_dtype)
 
     if squeezed:
         if original_ndim == 3:

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from flowreg3d_tpu_torch._device import resolve_device
+from flowreg3d_tpu_torch._trace import span
 from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.io.factory import get_video_file_writer
 from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
@@ -386,7 +387,9 @@ class BatchMotionCorrector:
             while self.video_reader.has_batch():
                 batch_idx += 1
                 t0 = time()
-                batch = self._select_channels(self.video_reader.read_batch())
+                with span("flowreg3d.read"):
+                    batch = self._select_channels(
+                        self.video_reader.read_batch())
                 if self._resident is not None:
                     out = self._process_batch_resident(batch)
                     registered, stats = out["registered"], out["stats"]
@@ -435,29 +438,32 @@ class BatchMotionCorrector:
         """One batch on the host-staged path: returns (registered numpy in
         the input dtype, stats (T, 4), flows numpy or None, valid (T,),
         masks uint8 (T,Z,Y,X) or None)."""
-        batch_d = self._upload(batch)
-        batch_proc = self._preprocess_frames(
-            batch_d, batch, normalization_ref=self._reference_raw_d)
+        with span("flowreg3d.upload"):
+            batch_d = self._upload(batch)
+        with span("flowreg3d.enqueue"):
+            batch_proc = self._preprocess_frames(
+                batch_d, batch, normalization_ref=self._reference_raw_d)
 
-        if self.w_init is None:
-            self.w_init = self._compute_initial_w(batch_d, batch_proc)
-        current_w_init = (self.w_init if self.options.update_initialization_w
-                          else torch.zeros_like(self.w_init))
+            if self.w_init is None:
+                self.w_init = self._compute_initial_w(batch_d, batch_proc)
+            current_w_init = (self.w_init
+                              if self.options.update_initialization_w
+                              else torch.zeros_like(self.w_init))
 
-        registered, w = self._process_batch(batch_d, batch_proc,
-                                            current_w_init)
-        if self.options.update_initialization_w:
-            self.w_init = w[-20:].mean(dim=0)
+            registered, w = self._process_batch(batch_d, batch_proc,
+                                                current_w_init)
+            if self.options.update_initialization_w:
+                self.w_init = w[-20:].mean(dim=0)
 
-        mask = self._valid_mask(w)
-        want = [registered, flow_statistics_tensor(w),
-                mask.flatten(1).all(dim=1)]
-        if self.valid_writer is not None:
-            want.append(mask.to(torch.uint8))
-        if self.w_writer is not None:
-            want.append(w)
-        if self.options.update_reference:
-            self._update_reference(batch_proc, w)
+            mask = self._valid_mask(w)
+            want = [registered, flow_statistics_tensor(w),
+                    mask.flatten(1).all(dim=1)]
+            if self.valid_writer is not None:
+                want.append(mask.to(torch.uint8))
+            if self.w_writer is not None:
+                want.append(w)
+            if self.options.update_reference:
+                self._update_reference(batch_proc, w)
         host = self._staging.download(want)
         masks = host[3] if self.valid_writer is not None else None
         flows = host[-1] if self.w_writer is not None else None

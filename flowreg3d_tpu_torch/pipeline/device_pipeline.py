@@ -43,6 +43,7 @@ the run's device.
 import numpy as np
 import torch
 
+from flowreg3d_tpu_torch._trace import span
 from flowreg3d_tpu_torch.ops.filters import apply_gaussian_filter, normalize
 from flowreg3d_tpu_torch.ops.warp import warp
 from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
@@ -156,8 +157,9 @@ class HostStaging:
             self.buffers.append(None)
         if self.buffers[i] is None or self.buffers[i].numel() < nbytes:
             self.buffers[i] = None      # free the old block first
-            self.buffers[i] = torch.empty(nbytes, dtype=torch.uint8,
-                                          pin_memory=self.pinned)
+            with span("flowreg3d.staging_pin"):
+                self.buffers[i] = torch.empty(nbytes, dtype=torch.uint8,
+                                              pin_memory=self.pinned)
         return self.buffers[i][:nbytes].view(x.dtype).view(x.shape)
 
     def download(self, tensors, outs=None):
@@ -165,12 +167,14 @@ class HostStaging:
         for s, x in zip(staged, tensors):
             s.copy_(x, non_blocking=self.pinned)
         if self.pinned:
-            torch.cuda.current_stream(tensors[0].device).synchronize()
-        if outs is None:
-            outs = [torch.empty(s.shape, dtype=s.dtype).numpy()
-                    for s in staged]
-        for s, out in zip(staged, outs):
-            torch.from_numpy(out).copy_(s)
+            with span("flowreg3d.staging_wait"):
+                torch.cuda.current_stream(tensors[0].device).synchronize()
+        with span("flowreg3d.staging_copy"):
+            if outs is None:
+                outs = [torch.empty(s.shape, dtype=s.dtype).numpy()
+                        for s in staged]
+            for s, out in zip(staged, outs):
+                torch.from_numpy(out).copy_(s)
         return outs
 
 
@@ -236,43 +240,46 @@ class ResidentPipeline:
         if batch.ndim == 4:
             batch = batch[..., None]
         dev = self.executor.device
-        raw_d = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
-        raw = raw_d.to(self.executor.dtype)
-        del raw_d
-        proc = preprocess(raw, self.options, self.ref_raw_d)
+        with span("flowreg3d.upload"):
+            raw_d = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
+            raw = raw_d.to(self.executor.dtype)
+            del raw_d
         T = batch.shape[0]
 
-        initial_w = None
-        if w_init is None:
-            n = min(22, T)
-            zeros = torch.zeros(tuple(batch.shape[1:4]) + (3,),
-                                dtype=self.executor.dtype, device=dev)
-            _, fl = self._flows(raw[:n], proc[:n], zeros,
-                                initial_progress_callback)
-            initial_w = w_init = fl.mean(dim=0)
-            del fl
-        current = w_init if use_w_init else torch.zeros_like(w_init)
+        with span("flowreg3d.enqueue"):
+            proc = preprocess(raw, self.options, self.ref_raw_d)
+            initial_w = None
+            if w_init is None:
+                n = min(22, T)
+                zeros = torch.zeros(tuple(batch.shape[1:4]) + (3,),
+                                    dtype=self.executor.dtype, device=dev)
+                _, fl = self._flows(raw[:n], proc[:n], zeros,
+                                    initial_progress_callback)
+                initial_w = w_init = fl.mean(dim=0)
+                del fl
+            current = w_init if use_w_init else torch.zeros_like(w_init)
 
-        uvw = current.expand((T,) + tuple(current.shape))
-        shards = self.executor.run_shards(
-            raw, proc, self.ref_raw_d, self.ref_proc_d, uvw, self.weight_d,
-            self.key, self.order, progress_callback)
-        # the flows needed here, in frame order on the run's device
-        lo = 0 if update_reference else T - min(20, T)
-        flows = [f[max(lo - a, 0):].to(dev) for a, b, _, f in shards
-                 if b > lo]
-        flows = flows[0] if len(flows) == 1 else torch.cat(flows)
-        new_w_init = flows[-20:].mean(dim=0)
-        if update_reference:
-            self.ref_proc_d = updated_reference(proc, flows, self.ref_proc_d,
-                                                self.order,
-                                                self.executor.use_kernels)
+            uvw = current.expand((T,) + tuple(current.shape))
+            shards = self.executor.run_shards(
+                raw, proc, self.ref_raw_d, self.ref_proc_d, uvw,
+                self.weight_d, self.key, self.order, progress_callback)
+            # the flows needed here, in frame order on the run's device
+            lo = 0 if update_reference else T - min(20, T)
+            flows = [f[max(lo - a, 0):].to(dev) for a, b, _, f in shards
+                     if b > lo]
+            flows = flows[0] if len(flows) == 1 else torch.cat(flows)
+            new_w_init = flows[-20:].mean(dim=0)
+            if update_reference:
+                self.ref_proc_d = updated_reference(
+                    proc, flows, self.ref_proc_d, self.order,
+                    self.executor.use_kernels)
         # each shard's outputs go down through its device's staging into
         # its frames of the batch's host arrays
         host = None
         for a, b, r, f in shards:
-            want = self._outputs(r, f, batch.dtype, want_mask,
-                                 keep_flows_host)
+            with span("flowreg3d.enqueue"):
+                want = self._outputs(r, f, batch.dtype, want_mask,
+                                     keep_flows_host)
             if host is None:
                 host = [torch.empty((T,) + tuple(x.shape[1:]),
                                     dtype=x.dtype).numpy() for x in want]

@@ -26,7 +26,10 @@ executor bit-equal to the sequential one, at both ``use_kernels``; over
 body at both a_smooth, a warm call one replay with no host launch, the
 spatial executor one replay a frame bit-equal to the eager body and warp,
 and a sharded capture meeting an upload raising; ``compute_flow_level``'s
-and ``compute_flow``'s graphs bit-equal to their eager bodies on the card.
+and ``compute_flow``'s graphs bit-equal to their eager bodies on the card;
+a profiled ``compensate_arr`` showing every pipeline span as a host row and
+none on the card, and the frame graph's capture tallied once for two calls
+of one configuration.
 """
 
 import numpy as np
@@ -419,4 +422,43 @@ def test_level_and_2d_solvers_replay_their_graphs(card, a_smooth):
                        for x in (np.stack(J2d), w2, u2, u2)))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [g.replays for g in tex.graphs("flow2d")] == [1]
+    tex.clear_frame_graphs()
+
+
+
+def _u16_call():
+    video, ref = _frames(T=4, C=1)
+    opts = OFOptions(**FLOW, a_smooth=1.0, weight=[1.0], buffer_size=2)
+    return lambda: compensate_arr((video * 10000).astype(np.uint16),
+                                  ref * 10000, opts)
+
+
+def test_spans_are_host_rows_only(card):
+    from torch.profiler import ProfilerActivity, profile
+
+    call = _u16_call()
+    call()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+    rows = [(e.key, str(e.device_type)) for e in prof.key_averages()
+            if e.key.startswith("flowreg3d.")]
+    assert {"flowreg3d.read", "flowreg3d.upload", "flowreg3d.enqueue",
+            "flowreg3d.staging_pin", "flowreg3d.staging_wait",
+            "flowreg3d.staging_copy", "flowreg3d.output"} <= {
+                k for k, _ in rows}, rows
+    assert all(dt.endswith("CPU") for _, dt in rows), rows
+    tex.clear_frame_graphs()
+
+
+def test_frame_capture_tallied_once(card):
+    from flowreg3d_tpu_torch import _graph
+
+    call = _u16_call()
+    tex.clear_frame_graphs()
+    before = _graph.capture_totals().get("frame", (0, 0.0))[0]
+    call()
+    call()
+    n, seconds = _graph.capture_totals()["frame"]
+    assert n == before + 1 and seconds > 0
     tex.clear_frame_graphs()
