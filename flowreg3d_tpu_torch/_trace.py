@@ -22,7 +22,9 @@ inside itself):
   download completes;
 - ``flowreg3d.staging_copy``: the downloaded buffers copied into fresh
   pageable arrays;
-- ``flowreg3d.output``: ``compensate_arr``'s arrays assembled and cast;
+- ``flowreg3d.write``: a batch's outputs handed to the run's writers (in
+  memory, copied and cast into the arrays ``compensate_arr`` returns);
+- ``flowreg3d.output``: ``compensate_arr``'s arrays taken from its writers;
 - ``flowreg3d.graph_capture``: a CUDA graph captured (``_graph.cached``).
 """
 

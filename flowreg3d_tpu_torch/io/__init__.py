@@ -4,7 +4,8 @@ array adapters, the format factories, ImageJ hyperstack TIFF on the
 package's own numpy codec (``io/_tiff_format.py``), MATLAB-compatible HDF5,
 MAT v5/v7.3, the multifile/multichannel/subset/folder wrappers, dataset
 discovery, ScanImage metadata, the read-ahead reader and the background
-writer. Host-side numpy only: nothing here touches torch or the device.
+writer. Host-side only: nothing here touches the device (``ArrayWriter3D``
+copies through torch's CPU tensors).
 h5py is imported only where an HDF5 or MAT v7.3 file is asked for.
 """
 

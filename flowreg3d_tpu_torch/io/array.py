@@ -1,10 +1,12 @@
 """In-memory array reader/writer (parity: reference util/io/_arr_3d.py).
 
 These are the adapters that let ``compensate_arr`` reuse the streaming file
-pipeline unchanged.
+pipeline unchanged. The writer copies with torch's multithreaded CPU
+``copy_``: one numpy pass over a recording's outputs runs on one core.
 """
 
 import numpy as np
+import torch
 
 from flowreg3d_tpu_torch.io.base import VideoReader3D, VideoWriter3D
 
@@ -43,12 +45,48 @@ class ArrayReader3D(VideoReader3D):
         pass
 
 
-class ArrayWriter3D(VideoWriter3D):
-    """Accumulates written volumes; ``get_array()`` concatenates them."""
+def cast_frames(frames, dtype):
+    """``frames`` as ``dtype`` (no copy where it already is): integer types
+    rounded half to even and clipped to their range."""
+    if frames.dtype == dtype:
+        return frames
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return np.clip(np.rint(frames), info.min, info.max).astype(dtype)
+    return frames.astype(dtype)
 
-    def __init__(self):
+
+def _copy_into(dst, src):
+    """``dst[...] = src`` cast as ``astype`` casts, by torch's multithreaded
+    CPU copy where torch holds both dtypes."""
+    try:
+        dst_t, src_t = torch.from_numpy(dst), torch.from_numpy(src)
+    except (TypeError, ValueError):     # a dtype or byte order torch lacks
+        np.copyto(dst, src, casting="unsafe")
+        return
+    dst_t.copy_(src_t)
+
+
+class ArrayWriter3D(VideoWriter3D):
+    """Collects written volumes into one array that ``get_array()`` returns.
+
+    Told ``frame_count``, the writer allocates the whole (frame_count, Z, Y,
+    X, C) array at the first batch and copies each batch into its next
+    frames, cast to ``dtype`` on the way as ``cast_frames`` casts; a batch
+    beyond ``frame_count`` raises, and ``get_array`` returns the frames
+    written without a copy. Without a count it keeps the batches and
+    ``get_array`` concatenates them, then casts. ``frames_in_place`` and
+    ``frames_appended`` count the frames each way took.
+    """
+
+    def __init__(self, frame_count=None, dtype=None):
         super().__init__()
+        self.frame_count = frame_count
+        self.out_dtype = None if dtype is None else np.dtype(dtype)
+        self.frames_in_place = 0
+        self.frames_appended = 0
         self._chunks = []
+        self._array = None
 
     def write_frames(self, frames):
         frames = self._as_batch(frames)
@@ -56,12 +94,36 @@ class ArrayWriter3D(VideoWriter3D):
             raise ValueError(f"Expected 4D or 5D array, got {frames.ndim}D")
         if not self.initialized:
             self.init(frames)
-        self._chunks.append(np.asarray(frames))
+        if self.frame_count is None:
+            self._chunks.append(frames)
+            self.frames_appended += frames.shape[0]
+            return
+        start, stop = self.frames_in_place, self.frames_in_place + len(frames)
+        if stop > self.frame_count:
+            raise ValueError(f"ArrayWriter3D was told {self.frame_count} "
+                             f"frames and got {stop}")
+        if self._array is None:
+            dtype = frames.dtype if self.out_dtype is None else self.out_dtype
+            self._array = np.empty((self.frame_count,) + frames.shape[1:],
+                                   dtype)
+        out = self._array[start:stop]
+        if frames.shape != out.shape:   # a copy would broadcast
+            raise ValueError(f"Expected volumes of {out.shape[1:]}, got "
+                             f"{frames.shape[1:]}")
+        if np.issubdtype(out.dtype, np.integer):
+            frames = cast_frames(frames, out.dtype)
+        _copy_into(out, frames)
+        self.frames_in_place = stop
 
     def get_array(self):
+        if self._array is not None:
+            return self._array[:self.frames_in_place]
         if not self._chunks:
             return None
-        return np.concatenate(self._chunks, axis=0)
+        out = np.concatenate(self._chunks, axis=0)
+        if self.out_dtype is not None:
+            out = cast_frames(out, self.out_dtype)
+        return out
 
     def close(self):
         pass

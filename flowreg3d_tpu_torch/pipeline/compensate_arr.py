@@ -3,8 +3,10 @@
 Counterpart of ``flowreg3d_tpu/pipeline/compensate_arr.py``: wraps the
 arrays into the array reader/writer so the streaming pipeline is reused
 unchanged, restores the input's shape convention and applies
-``output_typename``. Returns ``(registered, flows)`` as numpy arrays.
-``device=None`` means 'cuda'.
+``output_typename``: the writer is told the recording's frame count and the
+output dtype, so each batch is cast into the returned array as it is
+written. Returns ``(registered, flows)`` as numpy arrays. ``device=None``
+means 'cuda'.
 """
 
 from typing import Callable, Optional, Tuple
@@ -12,6 +14,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 
 from flowreg3d_tpu_torch._trace import span
+from flowreg3d_tpu_torch.io.array import ArrayWriter3D
 from flowreg3d_tpu_torch.pipeline.corrector import (BatchMotionCorrector,
                                                     RegistrationConfig)
 from flowreg3d_tpu_torch.pipeline.of_options import OFOptions, OutputFormat
@@ -56,7 +59,9 @@ def compensate_arr(c1, c_ref, options: Optional[OFOptions] = None,
     options.save_w = True
     options.save_meta_info = False
     options._video_reader = None
-    options._video_writer = None
+    options._video_writer = ArrayWriter3D(    # the reader's binned frames
+        frame_count=-(-c1.shape[0] // options.bin_size),
+        dtype=_DTYPE_MAP.get(options.output_typename))
 
     corrector = BatchMotionCorrector(options, config, device)
     if progress_callback is not None:
@@ -66,15 +71,6 @@ def compensate_arr(c1, c_ref, options: Optional[OFOptions] = None,
     with span("flowreg3d.output"):
         c_reg = corrector.video_writer.get_array()
         w = corrector.w_writer.get_array()
-
-        if options.output_typename in _DTYPE_MAP:
-            out_dtype = _DTYPE_MAP[options.output_typename]
-            if np.issubdtype(out_dtype, np.integer):
-                info = np.iinfo(out_dtype)
-                c_reg = np.clip(np.rint(c_reg), info.min,
-                                info.max).astype(out_dtype)
-            else:
-                c_reg = c_reg.astype(out_dtype)
 
     if squeezed:
         if original_ndim == 3:

@@ -5,9 +5,10 @@ output directory, the read-ahead ``PrefetchReader3D`` and the background
 ``AsyncWriter3D`` around the reader and writer, flows to ``w.h5`` with
 datasets u, v, w when ``save_w``, the valid mask to ``valid_mask.h5`` when
 ``save_valid_mask``; a flow or mask writer that cannot be made warns and is
-skipped), reference setup (raw and preprocessed reference, per-channel
-weight volume), preprocessing ("MATLAB order": normalise against the
-reference's range, then the Gaussian), progress callbacks with task ids,
+skipped; in memory, the flows are written in place into one array of the
+recording's frames), reference setup (raw and preprocessed reference,
+per-channel weight volume), preprocessing ("MATLAB order": normalise against
+the reference's range, then the Gaussian), progress callbacks with task ids,
 the initial w (mean flow of the first <= 22 frames; zero under cc
 prealignment), w_init propagation (mean of the last <= 20 flows of each
 batch), per-frame flow statistics, valid-frame flags (``save_valid_idx``),
@@ -50,6 +51,7 @@ import torch
 
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch._trace import span
+from flowreg3d_tpu_torch.io.array import ArrayWriter3D
 from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.io.factory import get_video_file_writer
 from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
@@ -167,7 +169,10 @@ class BatchMotionCorrector:
                         str(output_path / "w.h5"), "HDF5",
                         dataset_names=["u", "v", "w"])
                 else:
-                    self.w_writer = get_video_file_writer(None, "ARRAY")
+                    # in place: an in-memory run never resumes, so every
+                    # frame of the reader is still to run
+                    self.w_writer = ArrayWriter3D(
+                        frame_count=len(self.video_reader))
             except Exception as e:
                 warnings.warn(f"Failed to create displacement writer: {e}. "
                               "Displacements will not be saved.")
@@ -402,11 +407,12 @@ class BatchMotionCorrector:
                 self.max_disp.extend(stats[:, 1].tolist())
                 self.mean_div.extend(stats[:, 2].tolist())
                 self.mean_translation.extend(stats[:, 3].tolist())
-                self.video_writer.write_frames(registered)
-                if self.w_writer is not None:
-                    self.w_writer.write_frames(flows)
-                if self.valid_writer is not None:
-                    self.valid_writer.write_frames(masks[..., None])
+                with span("flowreg3d.write"):
+                    self.video_writer.write_frames(registered)
+                    if self.w_writer is not None:
+                        self.w_writer.write_frames(flows)
+                    if self.valid_writer is not None:
+                        self.valid_writer.write_frames(masks[..., None])
                 if self.options.save_valid_idx:
                     self.valid_idx.extend(valid.tolist())
 

@@ -44,6 +44,9 @@ import numpy as np
 import torch
 
 from flowreg3d_tpu_torch._trace import span
+# a downloaded registered batch back in the input's dtype (integers rounded
+# half to even and clipped), as the in-memory writer casts its output
+from flowreg3d_tpu_torch.io.array import cast_frames as host_cast
 from flowreg3d_tpu_torch.ops.filters import apply_gaussian_filter, normalize
 from flowreg3d_tpu_torch.ops.warp import warp
 from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
@@ -122,17 +125,6 @@ def cast_output(registered, dtype):
     info = np.iinfo(dtype)
     out = torch.clamp(torch.round(registered), info.min, info.max)
     return out.to(getattr(torch, dtype.name))
-
-
-def host_cast(registered, dtype):
-    """A downloaded registered batch in the input's dtype (integers rounded
-    half to even and clipped)."""
-    if registered.dtype == dtype:
-        return registered
-    if np.issubdtype(dtype, np.integer):
-        info = np.iinfo(dtype)
-        return np.clip(np.rint(registered), info.min, info.max).astype(dtype)
-    return registered.astype(dtype)
 
 
 class HostStaging:

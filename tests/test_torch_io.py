@@ -10,6 +10,12 @@ package's ``flowreg3d_tpu.io``, on the same seeded numpy frames.
 - ``PrefetchReader3D``: the stream, ``seek_frame`` and binning equal to the
   plain reader and to the JAX wrapper; a closed prefetcher's thread ends;
 - ``AsyncWriter3D``: order, errors;
+- ``ArrayWriter3D`` against a concatenation of its batches and the cast
+  ``compensate_arr`` made before the writer cast (round half to even, then
+  clip, for integer types): equal values and dtype for every output type,
+  from u16 and float32, told the frame count (written in place, returned
+  without a copy) or not (concatenated); more frames than told, or another
+  volume shape, raise;
 - h5py imported only where HDF5 or MAT v7.3 is asked for, and its absence
   raised as an ImportError naming it.
 """
@@ -39,6 +45,7 @@ from flowreg3d_tpu_torch.io.ds import (dataset_name_for_channel,
 from flowreg3d_tpu_torch.io.multifile import (MULTICHANNELFileReader3D,
                                               SUBSETFileReader3D)
 from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
+from flowreg3d_tpu_torch.pipeline.compensate_arr import _DTYPE_MAP
 
 WRITERS = {"jax": jax_writer, "torch": get_video_file_writer}
 READERS = {"jax": jax_reader, "torch": get_video_file_reader}
@@ -309,3 +316,76 @@ def test_without_h5py_hdf5_and_mat73_raise(tmp_path, monkeypatch, video):
     _write("torch", tmp_path / "v.tif", "TIFF", video)
     np.testing.assert_array_equal(_read("torch", tmp_path / "v5.mat"), video)
     np.testing.assert_array_equal(_read("torch", tmp_path / "v.tif"), video)
+
+
+def _concatenated_then_cast(batches, dtype):
+    """The in-memory output as ``compensate_arr`` made it before its writer
+    cast: every batch concatenated, then cast."""
+    out = np.concatenate(batches, axis=0)
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return np.clip(np.rint(out), info.min, info.max).astype(dtype)
+    return out.astype(dtype)
+
+
+def _batches(src):
+    """T=5 volumes in batches of 2, 2, 1, holding values that round half to
+    even and that every integer output type clips."""
+    rng = np.random.default_rng(5)
+    if src == np.uint16:
+        edge = [0, 1, 254, 255, 256, 32767, 32768, 65534, 65535]
+        vol = rng.integers(0, 65536, (5, 3, 4, 6, 2), dtype=np.uint16)
+    else:
+        edge = [-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 254.5, 255.5, 32767.5,
+                -32768.5, 65535.5, -3e9, 2e9, 1e-3, -7.25]
+        vol = (rng.standard_normal((5, 3, 4, 6, 2)) * 4e4).astype(src)
+    vol.reshape(-1)[:len(edge)] = edge
+    return [vol[0:2], vol[2:4], vol[4:5]]
+
+
+@pytest.mark.parametrize("counted", [True, False])
+@pytest.mark.parametrize("src", [np.uint16, np.float32])
+@pytest.mark.parametrize("name", sorted(_DTYPE_MAP))
+def test_array_writer_casts_like_concatenate_then_cast(name, src, counted):
+    dtype = _DTYPE_MAP[name]
+    batches = _batches(src)
+    w = ArrayWriter3D(frame_count=5 if counted else None, dtype=dtype)
+    for b in batches:
+        w.write_frames(b)
+    got = w.get_array()
+    want = _concatenated_then_cast(batches, dtype)
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    assert (w.frames_in_place, w.frames_appended) == ((5, 0) if counted
+                                                      else (0, 5))
+    # told the count, the writer hands back its own array, never a copy
+    assert np.shares_memory(got, w.get_array()) == counted
+
+
+def test_array_writer_without_a_count_concatenates():
+    batches = _batches(np.uint16)
+    w = ArrayWriter3D()
+    for b in batches:
+        w.write_frames(b)
+    w.write_frames(batches[0][0])       # one (Z,Y,X,C) volume
+    got = w.get_array()
+    np.testing.assert_array_equal(
+        got, np.concatenate(batches + [batches[0][:1]]))
+    assert got.dtype == np.uint16
+    assert (w.frames_in_place, w.frames_appended) == (0, 6)
+    assert ArrayWriter3D().get_array() is None
+
+
+def test_array_writer_told_a_count_raises_beyond_it():
+    batches = _batches(np.float32)
+    w = ArrayWriter3D(frame_count=3)
+    w.write_frames(batches[0])
+    np.testing.assert_array_equal(w.get_array(), batches[0])
+    with pytest.raises(ValueError, match="told 3 frames and got 4"):
+        w.write_frames(batches[1])
+    with pytest.raises(ValueError, match="Expected volumes"):
+        w.write_frames(batches[2][..., :1])
+    w.write_frames(batches[2])
+    assert w.frames_in_place == 3 and w.frames_appended == 0
+    np.testing.assert_array_equal(w.get_array(),
+                                  np.concatenate([batches[0], batches[2]]))

@@ -13,8 +13,16 @@ JAX package's, on the CPU.
   ``apply_gaussian_filter`` on 4D and 5D inputs within 2e-6, the symmetric
   padding exactly;
 - the shape matrix, output casting, progress and options handling of
-  tests/pipeline/test_compensate.py on the port alone.
+  tests/pipeline/test_compensate.py on the port alone;
+- the outputs ``compensate_arr`` writes in place (its writers told the frame
+  count, the registered frames cast on the way) bit-equal to the
+  corrector's batches concatenated and then cast as before, for every
+  ``output_typename``, from u16 and float32, T=5 at buffer 2, on both
+  engines, and for 3-D and 4-D inputs; both arrays handed back without a
+  copy.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -29,14 +37,16 @@ from flowreg3d_tpu.pipeline import flow_statistics as jax_stats
 
 from flowreg3d_tpu_torch.convert import options_from_jax
 from flowreg3d_tpu_torch.ops import filters as tfilters
-from flowreg3d_tpu_torch.pipeline import (BatchMotionCorrector,
+from flowreg3d_tpu_torch.pipeline import (BatchMotionCorrector, OFOptions,
                                           OutputFormat, RegistrationConfig,
                                           compensate_arr, compensate_arr_3D,
                                           flow_statistics)
+from flowreg3d_tpu_torch.pipeline.compensate_arr import _DTYPE_MAP
 
 # the JAX pipeline tests' fixtures, shared so both packages see one case
 from tests.pipeline.conftest import (base_volume, fast_options,  # noqa: F401
                                      video5d)
+from tests.test_torch_io import _concatenated_then_cast
 
 torch.set_num_threads(1)
 
@@ -274,3 +284,123 @@ def test_pipeline_at_ofoptions_defaults_matches_jax(video5d, base_volume, C):
     assert w.shape == w_j.shape == video.shape[:4] + (3,)
     assert np.isfinite(w).all() and np.isfinite(reg).all()
     assert _agreement_db(reg, reg_j) >= 40.0
+
+
+ENGINES = {
+    "resident": None,
+    "host_staged": RegistrationConfig(parallelization="sequential",
+                                      device_resident=False),
+}
+
+
+def _recording(src, T=5):
+    """T volumes of (6,16,16,1): u16 counts, or float32 reaching below 0 and
+    above 65535, so that every integer output type clips."""
+    rng = np.random.default_rng(3)
+    base = rng.uniform(0, 1, (6, 20, 20))
+    frames = np.stack([base[:, t % 3:t % 3 + 16, 2:18]
+                       for t in range(T)])[..., None]
+    if src == np.uint16:
+        return (frames * 10000).astype(np.uint16)
+    return (frames * 1e5 - 3e4).astype(np.float32)
+
+
+def _reference(src):
+    return _recording(src)[:2].mean(axis=0)
+
+
+def _small_options(**kw):
+    """buffer 2: T=5 runs in batches of 2, 2 and 1."""
+    return OFOptions(alpha=(1.5, 1.5, 1.5), iterations=4, levels=3,
+                     min_level=1, buffer_size=2, quality_setting="fast", **kw)
+
+
+@pytest.fixture(scope="module")
+def before():
+    """(engine, src, T) -> the registered frames (the input's dtype) and
+    flows as ``compensate_arr`` got them before its writers were told the
+    frame count: the corrector's batches concatenated by writers told
+    none."""
+    from flowreg3d_tpu_torch.io.array import ArrayWriter3D
+
+    done = {}
+
+    def get(engine, src, T=5):
+        if (engine, src, T) not in done:
+            opts = _small_options().replace(
+                input_file=_recording(src, T),
+                reference_frames=_reference(src),
+                output_format=OutputFormat.ARRAY, save_w=True)
+            corr = BatchMotionCorrector(opts, ENGINES[engine], device="cpu")
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(importlib.import_module(
+                    "flowreg3d_tpu_torch.pipeline.corrector"), "ArrayWriter3D",
+                    lambda frame_count: ArrayWriter3D())
+                corr.run()
+            assert corr.video_writer.frames_appended == T
+            assert corr.w_writer.frames_appended == T
+            done[engine, src, T] = (corr.video_writer.get_array(),
+                                    corr.w_writer.get_array())
+        return done[engine, src, T]
+    return get
+
+
+def _recorded_writers(monkeypatch):
+    """The ``ArrayWriter3D`` instances ``compensate_arr`` and the corrector
+    make, in order (the frames' writer, then the flows')."""
+    from flowreg3d_tpu_torch.io.array import ArrayWriter3D
+
+    made = []
+
+    class Recorded(ArrayWriter3D):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    for mod in ("compensate_arr", "corrector"):
+        monkeypatch.setattr(importlib.import_module(
+            f"flowreg3d_tpu_torch.pipeline.{mod}"), "ArrayWriter3D", Recorded)
+    return made
+
+
+@pytest.mark.parametrize("name", sorted(_DTYPE_MAP))
+@pytest.mark.parametrize("src", [np.uint16, np.float32])
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_written_in_place_equals_concatenate_then_cast(monkeypatch, before,
+                                                       engine, src, name):
+    writers = _recorded_writers(monkeypatch)
+    reg, w = compensate_arr_3D(_recording(src), _reference(src),
+                               _small_options(output_typename=name),
+                               config=ENGINES[engine], device="cpu")
+    reg0, w0 = before(engine, src)
+    want = _concatenated_then_cast([reg0], _DTYPE_MAP[name])
+    assert reg.dtype == want.dtype and w.dtype == w0.dtype == np.float32
+    np.testing.assert_array_equal(reg, want)
+    np.testing.assert_array_equal(w, w0)
+    assert [(x.frames_in_place, x.frames_appended) for x in writers] == \
+        [(5, 0), (5, 0)]
+    assert np.shares_memory(reg, writers[0].get_array())
+    assert np.shares_memory(w, writers[1].get_array())
+
+
+@pytest.mark.parametrize("ndim", [3, 4])
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_squeezed_inputs_written_in_place(before, engine, ndim):
+    """(T,Z,Y,X) and (Z,Y,X) inputs return the shapes they returned before,
+    with the values of a (T,Z,Y,X,1) recording concatenated, then cast."""
+    T = 5 if ndim == 4 else 1
+    movie = _recording(np.uint16, T)[..., 0]
+    if ndim == 3:
+        movie = movie[0]
+    reg, w = compensate_arr_3D(movie, _reference(np.uint16)[..., 0],
+                               _small_options(),
+                               config=ENGINES[engine], device="cpu")
+    reg0, w0 = before(engine, np.uint16, T)
+    reg0 = _concatenated_then_cast([reg0], np.float64)
+    if ndim == 4:
+        want_reg, want_w = np.squeeze(reg0, axis=-1), w0
+    else:
+        want_reg, want_w = np.squeeze(reg0), np.squeeze(w0, axis=0)
+    assert reg.shape == movie.shape and w.shape == movie.shape + (3,)
+    np.testing.assert_array_equal(reg, want_reg)
+    np.testing.assert_array_equal(w, want_w)

@@ -1,9 +1,10 @@
 """The port's program spans and its graph-capture tally, on the CPU.
 
 Held: under ``torch.profiler`` a two-batch ``compensate_arr_3D`` shows each
-pipeline span as a host row once a batch (``flowreg3d.enqueue`` once more a
-shard on the resident engine, ``flowreg3d.output`` once a call) on both
-engines; every span is a ``cpu_op`` in the Chrome trace, never a
+pipeline span as a host row once a batch (``flowreg3d.read``,
+``flowreg3d.upload``, ``flowreg3d.staging_copy``, ``flowreg3d.write``;
+``flowreg3d.enqueue`` once more a shard on the resident engine;
+``flowreg3d.output`` once a call) on both engines; every span is a ``cpu_op`` in the Chrome trace, never a
 ``user_annotation`` (which the profiler mirrors onto the card as device
 time); without a profiler no span records and the outputs are bit-equal to
 a profiled run's; without ``_RecordFunctionFast`` a span does nothing;
@@ -26,7 +27,7 @@ from flowreg3d_tpu_torch.pipeline import (OFOptions, RegistrationConfig,
                                           compensate_arr_3D)
 
 IN_RUN = ("flowreg3d.read", "flowreg3d.upload", "flowreg3d.enqueue",
-          "flowreg3d.staging_copy")
+          "flowreg3d.staging_copy", "flowreg3d.write")
 ENGINES = {
     "resident": None,
     "host_staged": RegistrationConfig(parallelization="sequential",
@@ -67,7 +68,7 @@ def test_profiled_run_shows_each_span(engine):
     _, prof = _profiled(ENGINES[engine])
     rows = _span_rows(prof)
     for name in ("flowreg3d.read", "flowreg3d.upload",
-                 "flowreg3d.staging_copy"):
+                 "flowreg3d.staging_copy", "flowreg3d.write"):
         assert rows[name] == 2, (name, rows)
     # the resident engine queues its outputs apart from the batch (one shard
     # on the CPU); the host-staged path in one range
