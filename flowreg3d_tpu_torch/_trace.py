@@ -25,7 +25,13 @@ inside itself):
 - ``flowreg3d.write``: a batch's outputs handed to the run's writers (in
   memory, copied and cast into the arrays ``compensate_arr`` returns);
 - ``flowreg3d.output``: ``compensate_arr``'s arrays taken from its writers;
-- ``flowreg3d.graph_capture``: a CUDA graph captured (``_graph.cached``).
+- ``flowreg3d.graph_capture``: a CUDA graph captured (``_graph.cached``);
+- ``flowreg3d.prealign``: under ``cc_initialization``, every frame of a
+  batch prealigned (``BaseExecutor3D._prealign_frames``: one prealignment
+  graph replay a frame on a card), inside ``flowreg3d.enqueue``;
+- ``flowreg3d.cc_finalize``: under ``cc_initialization``, the rigid flow
+  added to the residual flows and the raw frames warped again
+  (``BaseExecutor3D._finalize_cc``), inside ``flowreg3d.enqueue``.
 """
 
 import contextlib

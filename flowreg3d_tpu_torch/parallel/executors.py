@@ -58,6 +58,7 @@ import torch
 
 from flowreg3d_tpu_torch import _graph
 from flowreg3d_tpu_torch._device import resolve_device
+from flowreg3d_tpu_torch._trace import span
 from flowreg3d_tpu_torch.core.pyramid import build_pyramid, pyramid_config_key
 from flowreg3d_tpu_torch.ops.warp import warp
 from flowreg3d_tpu_torch.parallel.mesh import (batch_devices, batch_ranges,
@@ -308,20 +309,22 @@ class BaseExecutor3D:
     def _prealign_frames(self, batch_proc, ref_proc, w_init, flow_params):
         """Prealign every frame; returns (aligned (T,Z,Y,X,C), w_combined
         (T,Z,Y,X,3)) on the device."""
-        align = self._prealigner(ref_proc, w_init, flow_params)
-        outs = [align(batch_proc[t]) for t in range(batch_proc.shape[0])]
-        return (torch.stack([a for a, _ in outs]),
-                torch.stack([c for _, c in outs]))
+        with span("flowreg3d.prealign"):
+            align = self._prealigner(ref_proc, w_init, flow_params)
+            outs = [align(batch_proc[t]) for t in range(batch_proc.shape[0])]
+            return (torch.stack([a for a, _ in outs]),
+                    torch.stack([c for _, c in outs]))
 
     def _finalize_cc(self, batch, flows, extra_flow, ref_raw, order):
         """cc step 6: total flow = combined + residual; re-warp the raw
         frames."""
-        total = flows + extra_flow
-        registered = torch.stack([
-            warp(batch[t], total[t, ..., 0], total[t, ..., 1],
-                 total[t, ..., 2], ref_raw, order, self.use_kernels)
-            for t in range(batch.shape[0])])
-        return registered, total
+        with span("flowreg3d.cc_finalize"):
+            total = flows + extra_flow
+            registered = torch.stack([
+                warp(batch[t], total[t, ..., 0], total[t, ..., 1],
+                     total[t, ..., 2], ref_raw, order, self.use_kernels)
+                for t in range(batch.shape[0])])
+            return registered, total
 
     def run_shards(self, batch, batch_proc, ref_raw, ref_proc, uvw, weight,
                    key, order, progress_callback):

@@ -10,7 +10,10 @@ time); without a profiler no span records and the outputs are bit-equal to
 a profiled run's; without ``_RecordFunctionFast`` a span does nothing;
 ``_graph.cached`` tallies a capture and its seconds on a miss only, shows it
 as a ``flowreg3d.graph_capture`` row, and ``clear`` keeps the tally; a span
-costs under 2 µs with no profiler. The card-only checks are in
+costs under 2 µs with no profiler. Under ``cc_initialization`` each batch
+opens ``flowreg3d.prealign`` and ``flowreg3d.cc_finalize`` once, each inside
+the batch's ``flowreg3d.enqueue``; without cc neither opens, and without a
+profiler neither records. The card-only checks are in
 ``tests/test_torch_cuda.py``.
 """
 
@@ -43,18 +46,22 @@ def _movie(T=4, shape=(6, 16, 16)):
     return (frames * 10000).astype(np.uint16)
 
 
-def _run(config=None):
-    """A two-batch call (T=4, buffer 2) on the CPU."""
+CC_SPANS = ("flowreg3d.prealign", "flowreg3d.cc_finalize")
+
+
+def _run(config=None, **cc):
+    """A two-batch call (T=4, buffer 2) on the CPU; ``cc`` the prealignment's
+    options."""
     movie = _movie()
     opts = OFOptions(alpha=(1.5, 1.5, 1.5), iterations=4, levels=3,
-                     min_level=1, buffer_size=2, quality_setting="fast")
+                     min_level=1, buffer_size=2, quality_setting="fast", **cc)
     return compensate_arr_3D(movie, movie[:2].mean(axis=0), opts,
                              config=config, device="cpu")
 
 
-def _profiled(config=None):
+def _profiled(config=None, **cc):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        out = _run(config)
+        out = _run(config, **cc)
     return out, prof
 
 
@@ -90,7 +97,9 @@ def test_spans_are_host_ops_in_the_chrome_trace(tmp_path):
     assert {e.get("cat") for e in events} == {"cpu_op"}
 
 
-def test_unprofiled_run_records_nothing_and_matches(monkeypatch):
+def _count_spans(monkeypatch):
+    """The names of the spans opened from here on, each range replaced by
+    one that only counts."""
     opened = []
 
     class Counting:
@@ -104,6 +113,11 @@ def test_unprofiled_run_records_nothing_and_matches(monkeypatch):
             return False
 
     monkeypatch.setattr(_trace, "_RecordFunctionFast", Counting)
+    return opened
+
+
+def test_unprofiled_run_records_nothing_and_matches(monkeypatch):
+    opened = _count_spans(monkeypatch)
     plain = _run()
     assert opened == []
     traced, _ = _profiled()
@@ -159,3 +173,40 @@ def test_span_costs_under_two_microseconds():
                 pass
         best = min(best, (time.perf_counter() - t) / n)
     assert best < 2e-6, best
+
+
+CC = dict(cc_initialization=True, cc_hw=8, cc_up=4)
+
+
+def _intervals(prof, name):
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.name == name]
+
+
+def test_cc_batch_opens_its_spans_inside_enqueue():
+    _, prof = _profiled(**CC)
+    rows = _span_rows(prof)
+    # the default config takes the host-staged path under cc: one enqueue,
+    # one prealignment and one re-warp a batch
+    assert rows["flowreg3d.enqueue"] == 2, rows
+    enqueues = _intervals(prof, "flowreg3d.enqueue")
+    for name in CC_SPANS:
+        assert rows[name] == 2, (name, rows)
+        spans = _intervals(prof, name)
+        assert all(any(a <= s and t <= b for a, b in enqueues)
+                   for s, t in spans), (name, spans, enqueues)
+        # no span of a name opens inside another of the same name
+        assert all(t1 <= s2 for (_, t1), (s2, _) in zip(spans, spans[1:]))
+
+
+def test_cc_spans_absent_without_cc():
+    _, prof = _profiled()
+    assert not set(_span_rows(prof)) & set(CC_SPANS)
+
+
+def test_cc_spans_record_nothing_unprofiled(monkeypatch):
+    opened = _count_spans(monkeypatch)
+    _run(**CC)
+    assert opened == []
+    _profiled(**CC)
+    assert set(opened) >= set(CC_SPANS)
