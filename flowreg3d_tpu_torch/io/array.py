@@ -2,7 +2,11 @@
 
 These are the adapters that let ``compensate_arr`` reuse the streaming file
 pipeline unchanged. The writer copies with torch's multithreaded CPU
-``copy_``: one numpy pass over a recording's outputs runs on one core.
+``copy_``: one numpy pass over a recording's outputs runs on one core. Told
+its frame count, it also hands out views of its next frames, so that a
+batch's download lands in the returned array with no copy in between
+(``frames_view`` / ``commit_frames``); ``write_totals()`` counts the frames
+each way took over the process.
 """
 
 import numpy as np
@@ -56,6 +60,22 @@ def cast_frames(frames, dtype):
     return frames.astype(dtype)
 
 
+# float outputs a plain torch ``copy_`` casts to as ``astype`` does
+_COPY_FLOATS = (np.dtype(np.float16), np.dtype(np.float32),
+                np.dtype(np.float64))
+
+# frames ArrayWriter3D took over the process: downloads that landed in its
+# arrays ("landed") and batches ``write_frames`` copied in ("copied")
+_TOTALS = {"landed": 0, "copied": 0}
+
+
+def write_totals():
+    """{'landed': frames, 'copied': frames} of every ``ArrayWriter3D`` of
+    the process: frames committed after their download landed in a writer's
+    view, and frames ``write_frames`` copied in."""
+    return dict(_TOTALS)
+
+
 def _copy_into(dst, src):
     """``dst[...] = src`` cast as ``astype`` casts, by torch's multithreaded
     CPU copy where torch holds both dtypes."""
@@ -77,6 +97,11 @@ class ArrayWriter3D(VideoWriter3D):
     written without a copy. Without a count it keeps the batches and
     ``get_array`` concatenates them, then casts. ``frames_in_place`` and
     ``frames_appended`` count the frames each way took.
+
+    Told a count, ``frames_view(n, frame_shape, src_dtype)`` also hands out
+    the array's next ``n`` frames for the caller to fill from ``src_dtype``
+    frames by a plain ``copy_``, and ``commit_frames(n)`` takes them as
+    written; ``frames_landed`` counts the frames that came in this way.
     """
 
     def __init__(self, frame_count=None, dtype=None):
@@ -85,6 +110,7 @@ class ArrayWriter3D(VideoWriter3D):
         self.out_dtype = None if dtype is None else np.dtype(dtype)
         self.frames_in_place = 0
         self.frames_appended = 0
+        self.frames_landed = 0
         self._chunks = []
         self._array = None
 
@@ -94,26 +120,58 @@ class ArrayWriter3D(VideoWriter3D):
             raise ValueError(f"Expected 4D or 5D array, got {frames.ndim}D")
         if not self.initialized:
             self.init(frames)
+        _TOTALS["copied"] += frames.shape[0]
         if self.frame_count is None:
             self._chunks.append(frames)
             self.frames_appended += frames.shape[0]
             return
-        start, stop = self.frames_in_place, self.frames_in_place + len(frames)
+        out = self._next(len(frames), frames.shape[1:], frames.dtype)
+        if np.issubdtype(out.dtype, np.integer):
+            frames = cast_frames(frames, out.dtype)
+        _copy_into(out, frames)
+        self.frames_in_place += len(frames)
+
+    def _next(self, n, frame_shape, src_dtype):
+        """The array's next ``n`` frames, the array allocated at the first
+        call; raises past ``frame_count`` or for another frame shape."""
+        start, stop = self.frames_in_place, self.frames_in_place + n
         if stop > self.frame_count:
             raise ValueError(f"ArrayWriter3D was told {self.frame_count} "
                              f"frames and got {stop}")
         if self._array is None:
-            dtype = frames.dtype if self.out_dtype is None else self.out_dtype
-            self._array = np.empty((self.frame_count,) + frames.shape[1:],
+            dtype = src_dtype if self.out_dtype is None else self.out_dtype
+            self._array = np.empty((self.frame_count,) + tuple(frame_shape),
                                    dtype)
         out = self._array[start:stop]
-        if frames.shape != out.shape:   # a copy would broadcast
+        if (n,) + tuple(frame_shape) != out.shape:  # a copy would broadcast
             raise ValueError(f"Expected volumes of {out.shape[1:]}, got "
-                             f"{frames.shape[1:]}")
-        if np.issubdtype(out.dtype, np.integer):
-            frames = cast_frames(frames, out.dtype)
-        _copy_into(out, frames)
-        self.frames_in_place = stop
+                             f"{tuple(frame_shape)}")
+        return out
+
+    def frames_view(self, n, frame_shape, src_dtype):
+        """A writable view of the next ``n`` frames of ``frame_shape``
+        (Z,Y,X,C), for frames of ``src_dtype`` copied in by a plain
+        ``copy_``; None where that copy would not give ``write_frames``'
+        values (an integer output from another dtype needs its rounding and
+        clipping) or where the writer was told no count."""
+        src_dtype = np.dtype(src_dtype)
+        if self.frame_count is None:
+            return None
+        out_dtype = src_dtype if self.out_dtype is None else self.out_dtype
+        if out_dtype != src_dtype and out_dtype not in _COPY_FLOATS:
+            return None
+        if not self.initialized:
+            self.init(np.empty((0,) + tuple(frame_shape), src_dtype))
+        return self._next(n, frame_shape, src_dtype)
+
+    def commit_frames(self, n):
+        """The ``n`` frames of the last ``frames_view`` are written."""
+        if self.frames_in_place + n > self.frame_count:
+            raise ValueError(f"ArrayWriter3D was told {self.frame_count} "
+                             f"frames and got {self.frames_in_place + n}")
+        self.frames_in_place += n
+        self.frames_landed += n
+        _TOTALS["landed"] += n
 
     def get_array(self):
         if self._array is not None:

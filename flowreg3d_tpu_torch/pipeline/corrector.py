@@ -25,11 +25,15 @@ Two engines run a batch. The device-resident one
 allows it (``device_resident=None``); ``device_resident=True`` requires it
 and raises where the configuration does not allow it;
 ``device_resident=False`` forces the host-staged path: the batch is uploaded
-as float32 and the registered frames are cast on the host. Both engines
-download through the run's ``HostStaging`` (one page-locked buffer per
-output on CUDA, sized to one batch, reused by every batch and freed when
-the run ends) into fresh arrays, which is what lets the async writer hold a
-batch while the next one downloads. ``used_device_resident`` reports which
+as float32. Both engines cast the registered frames to the input's dtype on
+the device and download through the run's ``HostStaging`` (one page-locked
+buffer per output on CUDA, sized to one batch, reused by every batch and
+freed when the run ends). Where the frames' or the flows' writer is an
+in-memory ``ArrayWriter3D`` told its frame count, and a plain copy gives
+what its ``write_frames`` would, that download lands in the writer's next
+frames, cast on the way, and the batch is committed to it; every other
+writer gets fresh arrays, which is what lets the async writer hold a batch
+while the next one downloads. ``used_device_resident`` reports which
 engine ran. ``device=None`` means 'cuda'. The reader's thread decodes with
 numpy only; every upload and download stays on the calling thread.
 
@@ -58,6 +62,9 @@ from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
 from flowreg3d_tpu_torch.parallel.executors import _config_key, get_executor
 from flowreg3d_tpu_torch.pipeline.device_pipeline import (HostStaging,
                                                           ResidentPipeline,
+                                                          cast_output,
+                                                          destinations,
+                                                          download_dtype,
                                                           host_cast,
                                                           preprocess,
                                                           resident_supported,
@@ -129,6 +136,7 @@ class BatchMotionCorrector:
         self.valid_idx: List[bool] = []
         self._resident = None
         self._staging = None
+        self._landed = (None, None)     # the writers' views of the batch
         self.used_device_resident = False   # which engine the last run used
 
         self.progress_callbacks: List[Callable[[int, Optional[int]], None]] = []
@@ -333,8 +341,9 @@ class BatchMotionCorrector:
                         self.executor.use_kernels), self._staging)
 
     def _process_batch_resident(self, batch):
-        """One batch through the resident engine; returns its result
-        dict."""
+        """One batch through the resident engine, its registered frames and
+        flows downloaded into the writers' views where ``_landing`` gave
+        them; returns its result dict."""
         icb = ((lambda n: self._notify(n, "initial_w"))
                if self.progress_callbacks else None)
         cb = (lambda n: self._notify(n)) if self.progress_callbacks else None
@@ -344,13 +353,43 @@ class BatchMotionCorrector:
             want_mask=self.valid_writer is not None,
             keep_flows_host=self.w_writer is not None,
             update_reference=self.options.update_reference,
-            progress_callback=cb, initial_progress_callback=icb)
+            progress_callback=cb, initial_progress_callback=icb,
+            outs=self._landed)
         if self.w_init is None:
             self.w_init = out["initial_w"]
         if self.options.update_initialization_w:
             self.w_init = out["w_init"]
         self.reference_proc = self._resident.ref_proc_d
         return out
+
+    # -- writers ------------------------------------------------------------
+
+    def _landing(self, batch):
+        """(registered, flows): the views of the frames' and the flows'
+        writers that this batch downloads into, each None where that writer
+        takes the batch by ``write_frames`` (a file or async writer, one
+        told no count, or an output a plain copy does not give)."""
+        T = batch.shape[0]
+        frame = tuple(batch.shape[1:]) + ((1,) if batch.ndim == 4 else ())
+        registered = flows = None
+        view = getattr(self.video_writer, "frames_view", None)
+        # frames of other dtypes are still cast on the host after download
+        if view is not None and download_dtype(batch.dtype) == batch.dtype:
+            registered = view(T, frame, batch.dtype)
+        view = getattr(self.w_writer, "frames_view", None)
+        if view is not None:
+            flows = view(T, frame[:3] + (3,), torch.empty(
+                0, dtype=self.executor.dtype).numpy().dtype)
+        return registered, flows
+
+    @staticmethod
+    def _hand_over(writer, frames, view):
+        """The batch to ``writer``: committed where it landed in ``view``,
+        else written."""
+        if view is None:
+            writer.write_frames(frames)
+        else:
+            writer.commit_frames(view.shape[0])
 
     # -- run ----------------------------------------------------------------
 
@@ -395,6 +434,7 @@ class BatchMotionCorrector:
                 with span("flowreg3d.read"):
                     batch = self._select_channels(
                         self.video_reader.read_batch())
+                self._landed = landed = self._landing(batch)
                 if self._resident is not None:
                     out = self._process_batch_resident(batch)
                     registered, stats = out["registered"], out["stats"]
@@ -408,9 +448,9 @@ class BatchMotionCorrector:
                 self.mean_div.extend(stats[:, 2].tolist())
                 self.mean_translation.extend(stats[:, 3].tolist())
                 with span("flowreg3d.write"):
-                    self.video_writer.write_frames(registered)
+                    self._hand_over(self.video_writer, registered, landed[0])
                     if self.w_writer is not None:
-                        self.w_writer.write_frames(flows)
+                        self._hand_over(self.w_writer, flows, landed[1])
                     if self.valid_writer is not None:
                         self.valid_writer.write_frames(masks[..., None])
                 if self.options.save_valid_idx:
@@ -431,6 +471,7 @@ class BatchMotionCorrector:
             self.executor.cleanup()
             self._resident = None
             self._staging = None
+            self._landed = (None, None)
 
         if self.config.verbose:
             dt = time() - start_time
@@ -443,7 +484,9 @@ class BatchMotionCorrector:
     def _host_staged_batch(self, batch):
         """One batch on the host-staged path: returns (registered numpy in
         the input dtype, stats (T, 4), flows numpy or None, valid (T,),
-        masks uint8 (T,Z,Y,X) or None)."""
+        masks uint8 (T,Z,Y,X) or None); the registered frames and flows
+        downloaded into the writers' views where ``_landing`` gave them,
+        and those returned."""
         with span("flowreg3d.upload"):
             batch_d = self._upload(batch)
         with span("flowreg3d.enqueue"):
@@ -462,19 +505,21 @@ class BatchMotionCorrector:
                 self.w_init = w[-20:].mean(dim=0)
 
             mask = self._valid_mask(w)
-            want = [registered, flow_statistics_tensor(w),
-                    mask.flatten(1).all(dim=1)]
+            want = [cast_output(registered, batch.dtype),
+                    flow_statistics_tensor(w), mask.flatten(1).all(dim=1)]
             if self.valid_writer is not None:
                 want.append(mask.to(torch.uint8))
             if self.w_writer is not None:
                 want.append(w)
             if self.options.update_reference:
                 self._update_reference(batch_proc, w)
-        host = self._staging.download(want)
+        host = self._staging.download(
+            want, destinations(len(want), *self._landed))
         masks = host[3] if self.valid_writer is not None else None
         flows = host[-1] if self.w_writer is not None else None
-        return (host_cast(host[0], batch.dtype), host[1], flows, host[2],
-                masks)
+        registered = (host[0] if self._landed[0] is not None
+                      else host_cast(host[0], batch.dtype))
+        return registered, host[1], flows, host[2], masks
 
     # -- checkpoint / resume ------------------------------------------------
 

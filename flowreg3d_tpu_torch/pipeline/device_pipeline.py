@@ -19,15 +19,17 @@ The initial w (mean flow of the first <= 22 frames), the w_init tail mean
 compensated frames) stay on the device. The downloads go through
 ``HostStaging``: on CUDA one page-locked buffer per output, sized to one
 batch and reused by every batch, ``non_blocking`` copies and one sync a
-batch, then a copy into pageable memory that is handed out, so the pinned
-memory never exceeds one batch. The full flows come down only when asked
-for (``keep_flows_host``). The CPU path never pins.
+batch, then one copy out of the pinned buffer, so the pinned memory never
+exceeds one batch. That copy lands the registered frames and the flows in
+the caller's arrays where it gives them (``run_batch``'s ``outs``: the
+in-memory writers' next frames, cast to their dtype on the way), and
+everything else in fresh pageable arrays. The full flows come down only
+when asked for (``keep_flows_host``). The CPU path never pins.
 
 The stages and the download are the host-staged path's own
 (``preprocess``, ``updated_reference``, ``valid_mask``, ``cast_output``,
 ``HostStaging``), so the two paths compute the same numbers; they differ in
-what the upload carries (the native dtype here, float32 there) and where
-the registered frames are cast.
+what the upload carries (the native dtype here, float32 there).
 
 The flows come from the executor's ``run_shards``: one shard on the run's
 device for the sequential and batched executors, one a device for the mesh
@@ -52,7 +54,8 @@ from flowreg3d_tpu_torch.ops.warp import warp
 from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
 
 __all__ = ["ResidentPipeline", "resident_supported", "preprocess",
-           "updated_reference", "valid_mask", "cast_output", "HostStaging"]
+           "updated_reference", "valid_mask", "cast_output", "download_dtype",
+           "destinations", "HostStaging"]
 
 _ORDERS = {"cubic": 3, "linear": 1}
 # integer dtypes the registered frames are cast to on the device (others
@@ -115,6 +118,13 @@ def valid_mask(flows):
             & (mz >= 0) & (mz < Z))
 
 
+def download_dtype(dtype):
+    """The numpy dtype registered frames of input ``dtype`` come down in:
+    the input's where the device casts it, else float32."""
+    dtype = np.dtype(dtype)
+    return dtype if dtype.type in _DEVICE_CAST else np.dtype(np.float32)
+
+
 def cast_output(registered, dtype):
     """Registered frames (float tensor) in the input's numpy dtype where the
     device casts it (integers rounded half to even and clipped), else
@@ -127,16 +137,28 @@ def cast_output(registered, dtype):
     return out.to(getattr(torch, dtype.name))
 
 
+def destinations(n, registered=None, flows=None):
+    """Where each of a batch's ``n`` downloads goes, in their order (the
+    registered frames first, the flows last when they come down):
+    ``registered`` and ``flows`` where given, None (a fresh array) for the
+    rest."""
+    dest = [registered] + [None] * (n - 1)
+    if flows is not None:
+        dest[-1] = flows
+    return dest
+
+
 class HostStaging:
     """Downloads through one reusable host buffer per output slot.
 
     ``download(tensors)`` copies the i-th tensor into slot i's buffer (grown
     when a batch needs more, else reused), then into a fresh pageable numpy
-    array that the caller owns, or into the i-th of ``outs`` (numpy arrays of
-    the tensors' shapes and dtypes, such as slices of a whole batch's
-    arrays); the buffers are never handed out. With ``pinned`` (a CUDA
-    device) the buffers are page-locked and filled by ``non_blocking``
-    copies with one sync; the CPU path does not pin.
+    array that the caller owns, or into the i-th of ``outs`` where that is
+    not None (a numpy array of the tensor's shape, such as a slice of a
+    whole batch's array or of a writer's, cast to its dtype by the copy);
+    the buffers are never handed out. With ``pinned`` (a CUDA device) the
+    buffers are page-locked and filled by ``non_blocking`` copies with one
+    sync; the CPU path does not pin.
     """
 
     def __init__(self, pinned):
@@ -162,10 +184,13 @@ class HostStaging:
             with span("flowreg3d.staging_wait"):
                 torch.cuda.current_stream(tensors[0].device).synchronize()
         with span("flowreg3d.staging_copy"):
-            if outs is None:
-                outs = [torch.empty(s.shape, dtype=s.dtype).numpy()
-                        for s in staged]
+            outs = [torch.empty(s.shape, dtype=s.dtype).numpy()
+                    if out is None else out
+                    for s, out in zip(staged, outs or [None] * len(staged))]
             for s, out in zip(staged, outs):
+                if out.shape != tuple(s.shape):     # a copy would broadcast
+                    raise ValueError(f"download of {tuple(s.shape)} into "
+                                     f"{out.shape}")
                 torch.from_numpy(out).copy_(s)
         return outs
 
@@ -220,13 +245,17 @@ class ResidentPipeline:
     def run_batch(self, batch, w_init=None, use_w_init=True,
                   want_mask=False, keep_flows_host=False,
                   update_reference=False, progress_callback=None,
-                  initial_progress_callback=None):
+                  initial_progress_callback=None, outs=(None, None)):
         """One batch (T,Z,Y,X[,C]) numpy array in its native dtype.
 
         Returns a dict: registered (numpy, input dtype), stats (numpy
         (T, 4)), valid (numpy bool (T,)), masks (numpy uint8 (T,Z,Y,X) or
         None), flows (numpy or None), w_init (device (Z,Y,X,3) tail mean),
         initial_w (device, or None when ``w_init`` was given).
+
+        ``outs``: host arrays of the batch's (registered, flows), either
+        None, that the downloads fill (each shard its frames), cast to
+        their dtypes on the way; given, they are what the dict holds.
         """
         batch = np.asarray(batch)
         if batch.ndim == 4:
@@ -266,7 +295,7 @@ class ResidentPipeline:
                     proc, flows, self.ref_proc_d, self.order,
                     self.executor.use_kernels)
         # each shard's outputs go down through its device's staging into
-        # its frames of the batch's host arrays
+        # its frames of the batch's host arrays: the caller's where given
         host = None
         for a, b, r, f in shards:
             with span("flowreg3d.enqueue"):
@@ -274,12 +303,14 @@ class ResidentPipeline:
                                      keep_flows_host)
             if host is None:
                 host = [torch.empty((T,) + tuple(x.shape[1:]),
-                                    dtype=x.dtype).numpy() for x in want]
+                                    dtype=x.dtype).numpy() if h is None else h
+                        for x, h in zip(want, destinations(len(want), *outs))]
             self._staging_of(f.device).download(want, [h[a:b] for h in host])
         del shards, want
         reg, stats_h, valid_h = host[:3]
         return {
-            "registered": host_cast(reg, batch.dtype),
+            "registered": reg if outs[0] is not None
+            else host_cast(reg, batch.dtype),
             "stats": stats_h,
             "valid": valid_h,
             "masks": host[3] if want_mask else None,

@@ -16,6 +16,16 @@ package's ``flowreg3d_tpu.io``, on the same seeded numpy frames.
   from u16 and float32, told the frame count (written in place, returned
   without a copy) or not (concatenated); more frames than told, or another
   volume shape, raise;
+- ``ArrayWriter3D.frames_view``: a view filled by a plain torch ``copy_``
+  and committed holds what ``write_frames`` writes, for every output type
+  it offers a view for (a float output, or the source's dtype), and it
+  declines the rest (an integer output from another dtype) and a writer
+  told no count; the process tally and the writer's count; past the count,
+  or for another volume shape, it raises as ``write_frames`` does;
+- the device cast of the registered frames (``cast_output``) equals the
+  host's (``cast_frames``) bit for bit on float32 frames holding half-way
+  values, values out of range on both sides and noise, for every integer
+  type the device casts to;
 - h5py imported only where HDF5 or MAT v7.3 is asked for, and its absence
   raised as an ImportError naming it.
 """
@@ -26,6 +36,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import flowreg3d_tpu.io.prefetch as jprefetch
 import flowreg3d_tpu.io.scanimage as jscan
@@ -38,6 +49,7 @@ import flowreg3d_tpu_torch.io.scanimage as tscan
 from flowreg3d_tpu_torch.io import (ArrayReader3D, ArrayWriter3D,
                                     get_video_file_reader,
                                     get_video_file_writer)
+from flowreg3d_tpu_torch.io.array import cast_frames, write_totals
 from flowreg3d_tpu_torch.io._tiff_format import TiffWriter
 from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.io.ds import (dataset_name_for_channel,
@@ -46,6 +58,7 @@ from flowreg3d_tpu_torch.io.multifile import (MULTICHANNELFileReader3D,
                                               SUBSETFileReader3D)
 from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
 from flowreg3d_tpu_torch.pipeline.compensate_arr import _DTYPE_MAP
+from flowreg3d_tpu_torch.pipeline.device_pipeline import cast_output
 
 WRITERS = {"jax": jax_writer, "torch": get_video_file_writer}
 READERS = {"jax": jax_reader, "torch": get_video_file_reader}
@@ -389,3 +402,72 @@ def test_array_writer_told_a_count_raises_beyond_it():
     assert w.frames_in_place == 3 and w.frames_appended == 0
     np.testing.assert_array_equal(w.get_array(),
                                   np.concatenate([batches[0], batches[2]]))
+
+
+@pytest.mark.parametrize("counted", [True, False])
+@pytest.mark.parametrize("src", [np.uint16, np.float32])
+@pytest.mark.parametrize("name", sorted(_DTYPE_MAP))
+def test_array_writer_view_filled_by_copy_equals_written(name, src, counted):
+    """Batches filled into the writer's views by a plain torch ``copy_``
+    and committed, where it offers views, else written: the array of
+    ``write_frames`` alone."""
+    dtype = np.dtype(_DTYPE_MAP[name])
+    offers = counted and (dtype == src or dtype.kind == "f")
+    batches = _batches(src)
+    w = ArrayWriter3D(frame_count=5 if counted else None, dtype=dtype)
+    before = write_totals()
+    for b in batches:
+        view = w.frames_view(len(b), b.shape[1:], b.dtype)
+        assert (view is not None) == offers
+        if view is None:
+            w.write_frames(b)
+        else:
+            torch.from_numpy(view).copy_(torch.from_numpy(b))
+            w.commit_frames(len(b))
+    got = w.get_array()
+    want = _concatenated_then_cast(batches, dtype)
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    landed = 5 if offers else 0
+    assert (w.frames_in_place, w.frames_landed) == ((5 if counted else 0),
+                                                    landed)
+    after = write_totals()
+    assert (after["landed"] - before["landed"],
+            after["copied"] - before["copied"]) == (landed, 5 - landed)
+
+
+def test_array_writer_view_raises_beyond_the_count():
+    batches = _batches(np.float32)
+    w = ArrayWriter3D(frame_count=3)
+    view = w.frames_view(2, batches[0].shape[1:], np.float32)
+    view[...] = batches[0]
+    w.commit_frames(2)
+    with pytest.raises(ValueError, match="told 3 frames and got 4"):
+        w.frames_view(2, batches[1].shape[1:], np.float32)
+    with pytest.raises(ValueError, match="told 3 frames and got 4"):
+        w.commit_frames(2)
+    with pytest.raises(ValueError, match="Expected volumes"):
+        w.frames_view(1, batches[2].shape[1:4] + (1,), np.float32)
+    w.frames_view(1, batches[2].shape[1:], np.float32)[...] = batches[2]
+    w.commit_frames(1)
+    assert (w.frames_in_place, w.frames_landed) == (3, 3)
+    np.testing.assert_array_equal(w.get_array(),
+                                  np.concatenate([batches[0], batches[2]]))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.int16, np.uint16])
+def test_cast_output_equals_cast_frames(dtype):
+    """The registered frames' cast on the device against the host's, which
+    the host-staged engine ran before it cast on the device."""
+    info = np.iinfo(dtype)
+    halves = np.arange(-6, 7) + 0.5
+    edges = [info.min - 0.5, info.min - 0.49, info.min - 1.0, info.min - 1e6,
+             info.max + 0.5, info.max + 0.49, info.max + 1.0, info.max + 1e6,
+             info.min + 0.5, info.max - 0.5, -0.0, 0.0, -3e9, 3e9]
+    noise = np.random.default_rng(7).standard_normal(4000) * info.max
+    x = np.concatenate([halves, info.max // 2 + halves, edges,
+                        noise]).astype(np.float32).reshape(2, -1, 2)
+    got = cast_output(torch.from_numpy(x), dtype).numpy()
+    want = cast_frames(x, np.dtype(dtype))
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)

@@ -19,7 +19,16 @@ JAX package's, on the CPU.
   corrector's batches concatenated and then cast as before, for every
   ``output_typename``, from u16 and float32, T=5 at buffer 2, on both
   engines, and for 3-D and 4-D inputs; both arrays handed back without a
-  copy.
+  copy;
+- the downloads that land in those arrays (each batch's pinned buffer
+  copied and cast once into the writers' next frames) bit-equal to the path
+  on which every batch downloads into fresh arrays and is written by copy,
+  on both engines, from u16 to ``double``, ``single`` and ``uint16``, from
+  float32, and under ``cc_initialization``; the writers' and the process's
+  counts of the frames that landed, none where the frames' writer declines
+  (an integer output from float32 frames), for a file writer or for an
+  ``AsyncWriter3D``; the mesh executor's shards landing at their frames of
+  one writer's array.
 """
 
 import importlib
@@ -36,12 +45,16 @@ from flowreg3d_tpu.pipeline import compensate_arr_3D as jax_compensate_3d
 from flowreg3d_tpu.pipeline import flow_statistics as jax_stats
 
 from flowreg3d_tpu_torch.convert import options_from_jax
+from flowreg3d_tpu_torch.io.array import ArrayWriter3D, write_totals
+from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.ops import filters as tfilters
 from flowreg3d_tpu_torch.pipeline import (BatchMotionCorrector, OFOptions,
                                           OutputFormat, RegistrationConfig,
                                           compensate_arr, compensate_arr_3D,
+                                          compensate_recording,
                                           flow_statistics)
 from flowreg3d_tpu_torch.pipeline.compensate_arr import _DTYPE_MAP
+from flowreg3d_tpu_torch.pipeline.device_pipeline import HostStaging
 
 # the JAX pipeline tests' fixtures, shared so both packages see one case
 from tests.pipeline.conftest import (base_volume, fast_options,  # noqa: F401
@@ -404,3 +417,99 @@ def test_squeezed_inputs_written_in_place(before, engine, ndim):
     assert reg.shape == movie.shape and w.shape == movie.shape + (3,)
     np.testing.assert_array_equal(reg, want_reg)
     np.testing.assert_array_equal(w, want_w)
+
+
+# (source dtype, output_typename, options, the registered frames land)
+LANDING = {
+    "u16-double": (np.uint16, "double", {}, True),
+    "u16-single": (np.uint16, "single", {}, True),
+    "u16-uint16": (np.uint16, "uint16", {}, True),
+    "f32-double": (np.float32, "double", {}, True),
+    "f32-uint16": (np.float32, "uint16", {}, False),
+    "u16-double-cc": (np.uint16, "double",
+                      dict(cc_initialization=True, cc_hw=8, cc_up=4), True),
+}
+
+
+def _copied(src, name, config, **kw):
+    """``compensate_arr_3D`` with no writer handing out views: every batch
+    downloads into fresh arrays and is written by copy."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ArrayWriter3D, "frames_view", lambda self, *a: None)
+        return compensate_arr_3D(_recording(src), _reference(src),
+                                 _small_options(output_typename=name, **kw),
+                                 config=config, device="cpu")
+
+
+@pytest.mark.parametrize("engine,case", [
+    (e, c) for e in sorted(ENGINES) for c in LANDING
+    if not (e == "resident" and LANDING[c][2])])    # cc is host-staged
+def test_downloads_land_in_the_returned_arrays(monkeypatch, engine, case):
+    src, name, kw, lands = LANDING[case]
+    reg0, w0 = _copied(src, name, ENGINES[engine], **kw)
+    writers = _recorded_writers(monkeypatch)
+    before = write_totals()
+    reg, w = compensate_arr_3D(_recording(src), _reference(src),
+                               _small_options(output_typename=name, **kw),
+                               config=ENGINES[engine], device="cpu")
+    after = write_totals()
+    assert reg.dtype == reg0.dtype == _DTYPE_MAP[name]
+    np.testing.assert_array_equal(reg, reg0)
+    np.testing.assert_array_equal(w, w0)
+    n = 5 if lands else 0
+    assert [(x.frames_in_place, x.frames_landed) for x in writers] == \
+        [(5, n), (5, 5)]
+    assert (after["landed"] - before["landed"],
+            after["copied"] - before["copied"]) == (5 + n, 5 - n)
+
+
+def test_shards_land_at_their_frames(monkeypatch):
+    """The mesh executor over two devices: each batch's shards (one frame
+    each) download into their own frames of the writers' arrays."""
+    mesh = RegistrationConfig(parallelization="mesh", devices=["cpu"] * 2)
+    reg0, w0 = _copied(np.uint16, "double", mesh)
+    writers = _recorded_writers(monkeypatch)
+    downloads = []
+    download = HostStaging.download
+
+    def recorded(self, tensors, outs=None):
+        outs = download(self, tensors, outs)
+        downloads.append(outs)
+        return outs
+
+    monkeypatch.setattr(HostStaging, "download", recorded)
+    reg, w = compensate_arr_3D(_recording(np.uint16), _reference(np.uint16),
+                               _small_options(), config=mesh, device="cpu")
+    np.testing.assert_array_equal(reg, reg0)
+    np.testing.assert_array_equal(w, w0)
+    assert len(downloads) == 5      # batches of 2, 2 and 1 frames
+
+    def frame_of(out, array):
+        assert np.shares_memory(out, array)
+        return (out.ctypes.data - array.ctypes.data) // array[0].nbytes
+
+    for i, writer in ((0, writers[0]), (-1, writers[1])):
+        assert writer.frames_landed == 5
+        assert [frame_of(d[i], writer.get_array())
+                for d in downloads] == [0, 1, 2, 3, 4]
+
+
+def test_file_and_async_writers_take_batches_by_copy(tmp_path):
+    movie, ref = _recording(np.uint16), _reference(np.uint16)
+    before = write_totals()
+    compensate_recording(_small_options().replace(
+        input_file=movie, reference_frames=ref, output_path=tmp_path,
+        output_format=OutputFormat.TIFF, save_w=False), device="cpu")
+    assert write_totals() == before
+    frames = ArrayWriter3D(frame_count=5, dtype=np.float64)
+    opts = _small_options().replace(
+        input_file=movie, reference_frames=ref, save_w=True,
+        output_format=OutputFormat.ARRAY, save_meta_info=False)
+    opts._video_writer = AsyncWriter3D(frames)
+    corr = BatchMotionCorrector(opts, device="cpu")
+    corr.run()
+    assert (frames.frames_in_place, frames.frames_landed) == (5, 0)
+    assert corr.w_writer.frames_landed == 5
+    reg0, w0 = _copied(np.uint16, "double", None)
+    np.testing.assert_array_equal(frames.get_array(), reg0)
+    np.testing.assert_array_equal(corr.w_writer.get_array(), w0)
