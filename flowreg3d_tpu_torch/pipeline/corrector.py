@@ -20,27 +20,25 @@ file holds the frames after them), metadata files (``statistics.npz``,
 (``profile_dir``) and the batch loop. ``compensate_recording`` is the
 file-based entry point.
 
-Two engines run a batch. The device-resident one
-(``pipeline/device_pipeline.py``) is the default wherever the configuration
-allows it (``device_resident=None``); ``device_resident=True`` requires it
-and raises where the configuration does not allow it;
-``device_resident=False`` forces the host-staged path: the batch is uploaded
-as float32. Both engines cast the registered frames to the input's dtype on
-the device and download through the run's ``HostStaging`` (one page-locked
-buffer per output on CUDA, sized to one batch, reused by every batch and
-freed when the run ends). Where the frames' or the flows' writer is an
-in-memory ``ArrayWriter3D`` told its frame count, and a plain copy gives
-what its ``write_frames`` would, that download lands in the writer's next
-frames, cast on the way, and the batch is committed to it; every other
-writer gets fresh arrays, which is what lets the async writer hold a batch
-while the next one downloads. ``used_device_resident`` reports which
-engine ran. ``device=None`` means 'cuda'. The reader's thread decodes with
-numpy only; every upload and download stays on the calling thread.
-
-A flow backend (``get_displacement_func``, or a registered
-``flow_backend`` name instantiated once on the run's device) replaces the
-variational solver on the host-staged path: the executor calls it per
-frame on host numpy arrays and warps the raw frame on the device.
+Every batch goes through one step, ``ResidentPipeline.run_batch``
+(``pipeline/device_pipeline.py``), which downloads through the run's
+``HostStaging`` (one page-locked buffer per output on CUDA, sized to one
+batch, reused by every batch and freed when the run ends). Where the
+frames' or the flows' writer is an in-memory ``ArrayWriter3D`` told its
+frame count, and a plain copy gives what its ``write_frames`` would, that
+download lands in the writer's next frames, cast on the way, and the batch
+is committed to it; every other writer gets fresh arrays, which is what
+lets the async writer hold a batch while the next one downloads. The step
+takes its flows from the executor's shards wherever the configuration
+allows it (``device_resident=None``; ``used_device_resident`` reports it),
+else from its ``process_batch``: ``device_resident=True`` requires the
+shards and raises where they are not allowed, ``device_resident=False``
+takes ``process_batch``. A flow backend (``get_displacement_func``, or a
+registered ``flow_backend`` name instantiated once on the run's device)
+replaces the variational solver there: the executor calls it per frame on
+host numpy arrays and warps the raw frame on the device. ``device=None``
+means 'cuda'. The reader's thread decodes with numpy only; every upload and
+download stays on the calling thread.
 """
 
 import os
@@ -62,16 +60,10 @@ from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
 from flowreg3d_tpu_torch.parallel.executors import _config_key, get_executor
 from flowreg3d_tpu_torch.pipeline.device_pipeline import (HostStaging,
                                                           ResidentPipeline,
-                                                          cast_output,
-                                                          destinations,
                                                           download_dtype,
-                                                          host_cast,
                                                           preprocess,
-                                                          resident_supported,
-                                                          updated_reference,
-                                                          valid_mask)
+                                                          resident_supported)
 from flowreg3d_tpu_torch.pipeline.of_options import OFOptions, OutputFormat
-from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
 
 
 @dataclass
@@ -85,8 +77,9 @@ class RegistrationConfig:
     (a device may repeat; None: every visible card, or the run's device on
     the CPU). ``use_kernels``: run the CUDA kernels
     (True) or their plain PyTorch versions (False). ``device_resident``:
-    None = the resident engine wherever the configuration allows it, True =
-    require it, False = the host-staged path. ``profile_dir``: write a
+    None = the flows from the executor's shards wherever the configuration
+    allows it, True = require them, False = from its ``process_batch``.
+    ``profile_dir``: write a
     torch.profiler Chrome trace of the run there. ``prefetch``: batches the
     reader's thread decodes ahead (0: none). ``async_write``: a writer
     thread encodes file output. ``checkpoint``: write ``checkpoint.npz``
@@ -137,7 +130,7 @@ class BatchMotionCorrector:
         self._resident = None
         self._staging = None
         self._landed = (None, None)     # the writers' views of the batch
-        self.used_device_resident = False   # which engine the last run used
+        self.used_device_resident = False   # the last run's flows: shards
 
         self.progress_callbacks: List[Callable[[int, Optional[int]], None]] = []
         self._progress: Dict[str, Tuple[int, Optional[int]]] = {}
@@ -213,8 +206,8 @@ class BatchMotionCorrector:
             self.weight[..., c] = self.options.get_weight_at(c, C)
 
         self._reference_raw_d = self._upload(self.reference_raw)
-        self.reference_proc = self._preprocess_frames(self._reference_raw_d,
-                                                      self.reference_raw)
+        self.reference_proc = preprocess(self._reference_raw_d, self.options,
+                                         host_frames=self.reference_raw)
 
     def _upload(self, frames):
         return torch.as_tensor(np.asarray(frames)).to(device=self.device,
@@ -228,16 +221,6 @@ class BatchMotionCorrector:
         if idx:
             frames = np.asarray(frames)[..., list(idx)]
         return frames
-
-    def _preprocess_frames(self, frames, host_frames,
-                           normalization_ref=None):
-        """normalize (optionally against the reference's range), then the
-        Gaussian, on the device tensor ``frames``. A user ``preproc_funct``
-        replaces the chain: as in the JAX package it gets the host numpy
-        array ``host_frames``, and its result is uploaded as float32."""
-        if self.options.preproc_funct is not None:
-            return self._upload(self.options.preproc_funct(host_frames))
-        return preprocess(frames, self.options, normalization_ref)
 
     # -- progress -----------------------------------------------------------
 
@@ -266,16 +249,6 @@ class BatchMotionCorrector:
         fp["cc_up"] = self.options.cc_up
         return fp
 
-    def _process_batch(self, batch, batch_proc, w_init, task_id="main"):
-        cb = None
-        if self.progress_callbacks and task_id == "main":
-            cb = lambda n: self._notify(n, task_id)  # noqa: E731
-        return self.executor.process_batch(
-            batch, batch_proc, self._reference_raw_d, self.reference_proc,
-            w_init, get_displacement_func=self._resolve_flow_backend(),
-            interpolation_method=self.options.interpolation_method.value,
-            progress_callback=cb, flow_params=self._flow_params())
-
     def _resolve_flow_backend(self):
         """The callable replacing the variational solver, or None. A named
         backend is instantiated once, on the run's device, and kept on the
@@ -293,55 +266,32 @@ class BatchMotionCorrector:
             return fn
         return None
 
-    def _compute_initial_w(self, batch, batch_proc):
-        Z, Y, X = self.reference_proc.shape[:3]
-        zeros = torch.zeros((Z, Y, X, 3), dtype=torch.float32,
-                            device=self.device)
-        if self.options.cc_initialization:
-            return zeros
-        n_init = min(22, batch.shape[0])
-        _, w = self._process_batch(batch[:n_init], batch_proc[:n_init], zeros,
-                                   task_id="initial_w")
-        return w.mean(dim=0)
-
-    def _update_reference(self, batch_proc, w):
-        order = 3 if self.options.interpolation_method.value == "cubic" else 1
-        self.reference_proc = updated_reference(batch_proc, w,
-                                                self.reference_proc, order,
-                                                self.config.use_kernels)
-
-    @staticmethod
-    def _valid_mask(w):
-        """(T,Z,Y,X) bool tensor: the warp's sample coordinates stayed in
-        bounds (``w`` a (T,Z,Y,X,3) tensor or array)."""
-        return valid_mask(torch.as_tensor(w))
-
-    # -- device-resident engine ---------------------------------------------
+    # -- the batch step -----------------------------------------------------
 
     def _setup_resident(self):
-        """The run's download staging, and the resident engine where the
-        configuration allows it. Unlike the JAX package, a failure to build
-        the engine raises instead of warning and taking the host-staged
-        path."""
+        """The run's download staging and its batch step, the flows from
+        the executor's shards where the configuration allows it, else from
+        its ``process_batch``. Unlike the JAX package, a failure to build
+        the step raises instead of warning."""
         self._staging = HostStaging(pinned=self.device.type == "cuda")
-        self._resident = None
-        if not resident_supported(self.options, self.config, self.executor):
-            if self.config.device_resident is True:
-                raise ValueError(
-                    "device_resident=True but the configuration requires the "
-                    "host-staged path (a custom preproc_funct, a flow "
-                    "backend or cc_initialization)")
-            return
-        fp = self._flow_params()
+        shards = resident_supported(self.options, self.config, self.executor)
+        if self.config.device_resident is True and not shards:
+            raise ValueError(
+                "device_resident=True but the configuration's flows come "
+                "from process_batch (a custom preproc_funct, a flow backend, "
+                "cc_initialization or the spatial executor)")
+        self.used_device_resident = shards
+        fp, ref = self._flow_params(), self.reference_proc
         self._resident = ResidentPipeline(
-            self.options, self.executor, self._reference_raw_d,
-            self.reference_proc,
-            self.executor._weight_volume(fp, self.reference_proc),
-            _config_key(self.reference_proc, fp, self.executor.dtype,
-                        self.executor.use_kernels), self._staging)
+            self.options, self.executor, self._reference_raw_d, ref,
+            self.executor._weight_volume(fp, ref) if shards else None,
+            _config_key(ref, fp, self.executor.dtype,
+                        self.executor.use_kernels) if shards else None,
+            self._staging, flow_params=None if shards else fp,
+            get_displacement_func=self._resolve_flow_backend())
 
     def _process_batch_resident(self, batch):
-        """One batch through the resident engine, its registered frames and
+        """One batch through the batch step, its registered frames and
         flows downloaded into the writers' views where ``_landing`` gave
         them; returns its result dict."""
         icb = ((lambda n: self._notify(n, "initial_w"))
@@ -416,12 +366,11 @@ class BatchMotionCorrector:
         self._total_frames = len(self.video_reader)
         frames_done = self._resume()
         self._setup_resident()
-        self.used_device_resident = self._resident is not None
 
         if self.config.verbose:
             print(f"Starting compensation with "
                   f"quality={self.options.quality_setting.value}, "
-                  f"buffer={self.options.buffer_size}, device-resident "
+                  f"buffer={self.options.buffer_size}, flows from shards "
                   f"{self.used_device_resident}")
 
         batch_idx = 0
@@ -435,14 +384,9 @@ class BatchMotionCorrector:
                     batch = self._select_channels(
                         self.video_reader.read_batch())
                 self._landed = landed = self._landing(batch)
-                if self._resident is not None:
-                    out = self._process_batch_resident(batch)
-                    registered, stats = out["registered"], out["stats"]
-                    flows, valid, masks = (out["flows"], out["valid"],
-                                           out["masks"])
-                else:
-                    registered, stats, flows, valid, masks = \
-                        self._host_staged_batch(batch)
+                out = self._process_batch_resident(batch)
+                registered, stats = out["registered"], out["stats"]
+                flows, valid, masks = out["flows"], out["valid"], out["masks"]
                 self.mean_disp.extend(stats[:, 0].tolist())
                 self.max_disp.extend(stats[:, 1].tolist())
                 self.mean_div.extend(stats[:, 2].tolist())
@@ -480,46 +424,6 @@ class BatchMotionCorrector:
         self._save_metadata()
         self._cleanup()
         return self.reference_raw
-
-    def _host_staged_batch(self, batch):
-        """One batch on the host-staged path: returns (registered numpy in
-        the input dtype, stats (T, 4), flows numpy or None, valid (T,),
-        masks uint8 (T,Z,Y,X) or None); the registered frames and flows
-        downloaded into the writers' views where ``_landing`` gave them,
-        and those returned."""
-        with span("flowreg3d.upload"):
-            batch_d = self._upload(batch)
-        with span("flowreg3d.enqueue"):
-            batch_proc = self._preprocess_frames(
-                batch_d, batch, normalization_ref=self._reference_raw_d)
-
-            if self.w_init is None:
-                self.w_init = self._compute_initial_w(batch_d, batch_proc)
-            current_w_init = (self.w_init
-                              if self.options.update_initialization_w
-                              else torch.zeros_like(self.w_init))
-
-            registered, w = self._process_batch(batch_d, batch_proc,
-                                                current_w_init)
-            if self.options.update_initialization_w:
-                self.w_init = w[-20:].mean(dim=0)
-
-            mask = self._valid_mask(w)
-            want = [cast_output(registered, batch.dtype),
-                    flow_statistics_tensor(w), mask.flatten(1).all(dim=1)]
-            if self.valid_writer is not None:
-                want.append(mask.to(torch.uint8))
-            if self.w_writer is not None:
-                want.append(w)
-            if self.options.update_reference:
-                self._update_reference(batch_proc, w)
-        host = self._staging.download(
-            want, destinations(len(want), *self._landed))
-        masks = host[3] if self.valid_writer is not None else None
-        flows = host[-1] if self.w_writer is not None else None
-        registered = (host[0] if self._landed[0] is not None
-                      else host_cast(host[0], batch.dtype))
-        return registered, host[1], flows, host[2], masks
 
     # -- checkpoint / resume ------------------------------------------------
 

@@ -1,54 +1,53 @@
-"""Device-resident batch engine: raw frames up once, registered frames down
+"""The pipeline's batch step: raw frames up once, registered frames down
 once.
 
 Counterpart of ``flowreg3d_tpu/pipeline/device_pipeline.py``. Per batch:
 
   upload the raw batch once in its native dtype (u16: 33.5 MB a
-  64x512x512 frame, against 67 MB as float32)
+  64x512x512 frame, against 67 MB as float32) and cast it on the device
     -> preprocess on the device (normalise against the reference's range,
-       then the Gaussian, the temporal sigma across the batch included)
-    -> flows from the executor, one shared w_init (the batched executor
-       replays one CUDA graph a frame)
-    -> finalize on the device: the warp of the raw frame (in the executor's
-       graph), the native-dtype cast (rint and clip for integers), the
-       (T, 4) statistics and the in-bounds valid flag and mask
+       then the Gaussian, the temporal sigma across the batch included), or
+       a user ``preproc_funct`` on the host batch, its result uploaded
+    -> flows and the raw frames warped by them from the executor, one
+       shared w_init
+    -> finalize on the device: the native-dtype cast (rint and clip for
+       integers), the (T, 4) statistics and the in-bounds valid flag and
+       mask
   download the registered batch in its native dtype and the statistics.
 
-The initial w (mean flow of the first <= 22 frames), the w_init tail mean
-(last <= 20 flows) and the reference update (mean of the last <= 100
-compensated frames) stay on the device. The downloads go through
-``HostStaging``: on CUDA one page-locked buffer per output, sized to one
-batch and reused by every batch, ``non_blocking`` copies and one sync a
-batch, then one copy out of the pinned buffer, so the pinned memory never
-exceeds one batch. That copy lands the registered frames and the flows in
-the caller's arrays where it gives them (``run_batch``'s ``outs``: the
-in-memory writers' next frames, cast to their dtype on the way), and
-everything else in fresh pageable arrays. The full flows come down only
-when asked for (``keep_flows_host``). The CPU path never pins.
+The initial w (mean flow of the first <= 22 frames; zero under the cc
+prealignment), the w_init tail mean (last <= 20 flows) and the reference
+update (mean of the last <= 100 compensated frames) stay on the device. The
+downloads go through ``HostStaging``: on CUDA one page-locked buffer per
+output, sized to one batch and reused by every batch, ``non_blocking``
+copies and one sync a batch, then one copy out of the pinned buffer, so the
+pinned memory never exceeds one batch. That copy lands the registered
+frames and the flows in the caller's arrays where it gives them
+(``run_batch``'s ``outs``: the in-memory writers' next frames, cast to their
+dtype on the way), and everything else in fresh pageable arrays. The full
+flows come down only when asked for (``keep_flows_host``). The CPU path
+never pins.
 
-The stages and the download are the host-staged path's own
-(``preprocess``, ``updated_reference``, ``valid_mask``, ``cast_output``,
-``HostStaging``), so the two paths compute the same numbers; they differ in
-what the upload carries (the native dtype here, float32 there).
-
-The flows come from the executor's ``run_shards``: one shard on the run's
-device for the sequential and batched executors, one a device for the mesh
-executor (JAX's mesh mode; the batch is uploaded and preprocessed on the
-run's device as above, since the temporal Gaussian spans the batch). Each
-shard is finalized on its device (cast, statistics, valid flags and masks)
-and downloaded through that device's own ``HostStaging`` into its frames
-of the batch's host arrays. Only the flows the w_init tail mean needs (the
-last <= 20), and all of them when the reference is updated, come back to
-the run's device.
+The flows come as (start, stop, registered, flows) shards from one of two
+sources. Where ``resident_supported`` allows it, the executor's
+``run_shards``: one shard on the run's device for the sequential and
+batched executors (the batched one replays one CUDA graph a frame), one a
+device for the mesh executor (JAX's mesh mode; the batch is uploaded and
+preprocessed on the run's device, since the temporal Gaussian spans the
+batch). Elsewhere (the cc prealignment, a flow backend, the spatial
+executor, ``device_resident=False``) one shard of the executor's
+``process_batch`` on its device. Each shard is finalized on its device
+(cast, statistics, valid flags and masks) and downloaded through that
+device's own ``HostStaging`` into its frames of the batch's host arrays.
+Only the flows the w_init tail mean needs (the last <= 20), and all of them
+when the reference is updated, come back to the run's device.
 """
 
 import numpy as np
 import torch
 
 from flowreg3d_tpu_torch._trace import span
-# a downloaded registered batch back in the input's dtype (integers rounded
-# half to even and clipped), as the in-memory writer casts its output
-from flowreg3d_tpu_torch.io.array import cast_frames as host_cast
+from flowreg3d_tpu_torch.io.array import cast_frames
 from flowreg3d_tpu_torch.ops.filters import apply_gaussian_filter, normalize
 from flowreg3d_tpu_torch.ops.warp import warp
 from flowreg3d_tpu_torch.pipeline.stats import flow_statistics_tensor
@@ -64,10 +63,11 @@ _DEVICE_CAST = (np.uint8, np.int8, np.int16, np.uint16)
 
 
 def resident_supported(options, config, executor) -> bool:
-    """True when the batch can run device-resident: not for a user
-    ``preproc_funct`` or a flow backend (host protocols), nor for the cc
-    prealignment, which the host-staged path runs; the spatial executor
-    drives its frames itself."""
+    """True when the batch step takes its flows from the executor's
+    ``run_shards``: not for a user ``preproc_funct`` or a flow backend
+    (host protocols), nor for the cc prealignment, nor for the spatial
+    executor, which drives its frames itself; these take theirs from its
+    ``process_batch``."""
     if config.device_resident is False:
         return False
     if options.preproc_funct is not None:
@@ -81,9 +81,15 @@ def resident_supported(options, config, executor) -> bool:
     return executor.name in ("sequential", "batched", "mesh")
 
 
-def preprocess(frames, options, normalization_ref=None):
+def preprocess(frames, options, normalization_ref=None, host_frames=None):
     """normalize (against the reference's range when given), then the
-    MATLAB-order Gaussian, on the device tensor ``frames``."""
+    MATLAB-order Gaussian, on the device tensor ``frames``. A user
+    ``preproc_funct`` replaces the chain: as in the JAX package it gets the
+    host numpy array ``host_frames``, and its result is uploaded as
+    float32."""
+    if options.preproc_funct is not None:
+        return torch.as_tensor(np.asarray(options.preproc_funct(
+            host_frames))).to(device=frames.device, dtype=torch.float32)
     mode = ("separate" if options.channel_normalization.value == "separate"
             else "together")
     normalized = normalize(frames, ref=normalization_ref,
@@ -196,13 +202,17 @@ class HostStaging:
 
 
 class ResidentPipeline:
-    """Per-run device state of the resident engine: the raw and processed
-    reference, the weight volume and the flow configuration key, on the
-    executor's device, and the run's ``HostStaging`` (and one more for each
-    other device the executor's shards run on)."""
+    """Per-run state of the batch step: the raw and processed reference,
+    the weight volume and the flow configuration key, on the executor's
+    device, the run's ``HostStaging`` (and one more for each other device
+    the executor's shards run on) and the flow source. ``flow_params``
+    None: the flows of ``run_shards``; given: those of ``process_batch``
+    with these parameters and ``get_displacement_func`` (``weight`` and
+    ``config_key`` unused)."""
 
     def __init__(self, options, executor, reference_raw, reference_proc,
-                 weight, config_key, staging):
+                 weight, config_key, staging, flow_params=None,
+                 get_displacement_func=None):
         self.options = options
         self.executor = executor
         self.key = config_key
@@ -212,6 +222,8 @@ class ResidentPipeline:
         self.weight_d = weight
         self.staging = staging
         self._stagings = {executor.device: staging}
+        self.flow_params = flow_params
+        self.get_displacement_func = get_displacement_func
 
     def ref_proc_np(self):
         """Host float64 copy of the (possibly updated) processed reference."""
@@ -235,12 +247,29 @@ class ResidentPipeline:
             want.append(flows)
         return want
 
-    def _flows(self, raw, proc, w_init, progress_callback):
-        T = raw.shape[0]
-        uvw = w_init.expand((T,) + tuple(w_init.shape))
-        return self.executor._run(raw, proc, self.ref_raw_d, self.ref_proc_d,
-                                  uvw, self.weight_d, self.key, self.order,
-                                  progress_callback)
+    def _shards(self, raw, proc, w_init, progress_callback):
+        """The frames' (start, stop, registered, flows) shards, each frame
+        solved from ``w_init``: the executor's ``run_shards``, or one shard
+        of its ``process_batch`` on its device."""
+        if self.flow_params is None:
+            uvw = w_init.expand((raw.shape[0],) + tuple(w_init.shape))
+            return self.executor.run_shards(
+                raw, proc, self.ref_raw_d, self.ref_proc_d, uvw,
+                self.weight_d, self.key, self.order, progress_callback)
+        return [(0, raw.shape[0], *self.executor.process_batch(
+            raw, proc, self.ref_raw_d, self.ref_proc_d, w_init,
+            get_displacement_func=self.get_displacement_func,
+            interpolation_method=self.options.interpolation_method.value,
+            progress_callback=progress_callback,
+            flow_params=self.flow_params))]
+
+    @staticmethod
+    def _flows_from(shards, lo, device):
+        """The shards' flows of frames ``lo`` on, in frame order on
+        ``device``."""
+        flows = [f[max(lo - a, 0):].to(device) for a, b, _, f in shards
+                 if b > lo]
+        return flows[0] if len(flows) == 1 else torch.cat(flows)
 
     def run_batch(self, batch, w_init=None, use_w_init=True,
                   want_mask=False, keep_flows_host=False,
@@ -268,27 +297,22 @@ class ResidentPipeline:
         T = batch.shape[0]
 
         with span("flowreg3d.enqueue"):
-            proc = preprocess(raw, self.options, self.ref_raw_d)
+            proc = preprocess(raw, self.options, self.ref_raw_d, batch)
             initial_w = None
             if w_init is None:
-                n = min(22, T)
-                zeros = torch.zeros(tuple(batch.shape[1:4]) + (3,),
-                                    dtype=self.executor.dtype, device=dev)
-                _, fl = self._flows(raw[:n], proc[:n], zeros,
-                                    initial_progress_callback)
-                initial_w = w_init = fl.mean(dim=0)
-                del fl
+                initial_w = w_init = torch.zeros(
+                    tuple(batch.shape[1:4]) + (3,), dtype=self.executor.dtype,
+                    device=dev)
+                if not self.options.cc_initialization:
+                    n = min(22, T)
+                    initial_w = w_init = self._flows_from(self._shards(
+                        raw[:n], proc[:n], w_init, initial_progress_callback),
+                        0, dev).mean(dim=0)
             current = w_init if use_w_init else torch.zeros_like(w_init)
 
-            uvw = current.expand((T,) + tuple(current.shape))
-            shards = self.executor.run_shards(
-                raw, proc, self.ref_raw_d, self.ref_proc_d, uvw,
-                self.weight_d, self.key, self.order, progress_callback)
-            # the flows needed here, in frame order on the run's device
-            lo = 0 if update_reference else T - min(20, T)
-            flows = [f[max(lo - a, 0):].to(dev) for a, b, _, f in shards
-                     if b > lo]
-            flows = flows[0] if len(flows) == 1 else torch.cat(flows)
+            shards = self._shards(raw, proc, current, progress_callback)
+            flows = self._flows_from(
+                shards, 0 if update_reference else T - min(20, T), dev)
             new_w_init = flows[-20:].mean(dim=0)
             if update_reference:
                 self.ref_proc_d = updated_reference(
@@ -310,7 +334,7 @@ class ResidentPipeline:
         reg, stats_h, valid_h = host[:3]
         return {
             "registered": reg if outs[0] is not None
-            else host_cast(reg, batch.dtype),
+            else cast_frames(reg, batch.dtype),
             "stats": stats_h,
             "valid": valid_h,
             "masks": host[3] if want_mask else None,

@@ -1,6 +1,10 @@
-"""Port parity: the device-resident engine
-(``flowreg3d_tpu_torch.pipeline.device_pipeline``) against the port's
-host-staged path and the JAX package's resident engine, on the CPU.
+"""Port parity: the pipeline's batch step
+(``flowreg3d_tpu_torch.pipeline.device_pipeline``) with its flows from the
+executor's shards against the same step with its flows from
+``process_batch`` (``device_resident=False``) and against the JAX package's
+resident engine, on the CPU. Every route (the default, ``process_batch``,
+cc, a flow backend, the spatial executor) runs one ``run_batch`` a batch,
+and the default's two flow sources give the same bits.
 
 The movie of tests/pipeline/test_device_resident.py (T=5, (8,24,24), u16)
 with that file's options (buffer 3: two batches, the w_init chained
@@ -8,11 +12,11 @@ between them), in memory. Bounds of tests/pipeline/test_device_resident.py:
 registered max |diff| / max < 5e-3 with > 95% of the voxels equal,
 statistics within rtol 5e-2 and atol 5e-3; valid-frame flags and valid
 masks exactly. Also: reference updating on float32 and u16 input, the
-engine's own outputs (masks, flows only when asked for), downloads
-through one reused staging buffer per output on both engines (the results
-handed out share no memory with it), and
-``device_resident=True`` raising where the configuration needs the
-host-staged path; ``resident_supported`` against the JAX rule; and
+step's own outputs (masks, flows only when asked for), downloads
+through one reused staging buffer per output from both flow sources (the
+results handed out share no memory with it), and
+``device_resident=True`` raising where the configuration's flows come from
+``process_batch``; ``resident_supported`` against the JAX rule; and
 ``profile_dir`` writing a Chrome trace without changing the results.
 """
 
@@ -31,9 +35,8 @@ from flowreg3d_tpu.pipeline.of_options import OFOptions as JaxOptions
 from flowreg3d_tpu_torch.convert import options_from_jax
 from flowreg3d_tpu_torch.pipeline import (BatchMotionCorrector,
                                           RegistrationConfig)
-from flowreg3d_tpu_torch.pipeline.device_pipeline import (HostStaging,
-                                                          ResidentPipeline,
-                                                          valid_mask)
+from flowreg3d_tpu_torch.pipeline.device_pipeline import (
+    HostStaging, ResidentPipeline, resident_supported, valid_mask)
 
 from tests.pipeline.test_device_resident import _make_movie
 
@@ -67,6 +70,7 @@ def _jax(movie, **kw):
     return corr
 
 
+# the batch step with its flows from the sequential executor's process_batch
 HOST_STAGED = RegistrationConfig(parallelization="sequential",
                                  device_resident=False)
 
@@ -121,12 +125,55 @@ def test_resident_matches_jax_resident(movie, resident):
 
 
 def test_valid_mask_matches_jax(resident):
-    flows = resident.w_writer.get_array()
+    flows = resident.w_writer.get_array().copy()   # the fixture's stays
     flows[1, :2, :3, :4, 0] -= 40.0          # push a corner out of bounds
     want = JaxCorrector._valid_mask(flows)
-    got = BatchMotionCorrector._valid_mask(flows).numpy()
+    got = valid_mask(torch.from_numpy(flows)).numpy()
     np.testing.assert_array_equal(got, want)
     assert want.any() and not want[1, :2, :3, :4].any()
+
+
+# (options, config) of each route a batch takes to ``run_batch``
+ROUTES = {
+    "default": ({}, None),
+    "process_batch": ({}, RegistrationConfig(device_resident=False)),
+    "cc": (dict(cc_initialization=True, cc_hw=16), None),
+    "flow_backend": ({}, RegistrationConfig(flow_backend="volraft-mock")),
+    "spatial": ({}, RegistrationConfig(parallelization="spatial",
+                                       devices=["cpu"] * 2)),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_every_route_runs_one_batch_step(movie, resident, monkeypatch,
+                                         route):
+    """One ``run_batch`` a batch (buffer 3 over T=5) on every route, its
+    flows from the executor's shards exactly where ``resident_supported``
+    allows them; the default configuration's two flow sources give the
+    same bits. The numbers of the cc, backend and spatial routes are held
+    against JAX in their own files."""
+    kw, config = ROUTES[route]
+    batches = []
+    run_batch = ResidentPipeline.run_batch
+
+    def spied(self, batch, **kwargs):
+        batches.append(batch.shape[0])
+        return run_batch(self, batch, **kwargs)
+
+    monkeypatch.setattr(ResidentPipeline, "run_batch", spied)
+    corr = _port(movie, config, **kw)
+    assert batches == [3, 2]
+    assert corr.used_device_resident == resident_supported(
+        corr.options, corr.config, corr.executor)
+    assert corr.used_device_resident == (route == "default")
+    if route in ("default", "process_batch"):
+        for a, b in zip(_outputs(corr), _outputs(resident)):
+            if isinstance(a, dict):
+                for k in STATS:
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            else:
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
 
 
 def test_engine_outputs_and_flows_on_request(movie):
@@ -205,9 +252,6 @@ def test_device_resident_true_raises_when_unsupported(movie):
 def test_resident_supported_matches_jax(movie, case):
     from flowreg3d_tpu.pipeline.device_pipeline import \
         resident_supported as jax_supported
-
-    from flowreg3d_tpu_torch.pipeline.device_pipeline import \
-        resident_supported
 
     case = dict(case)
     executor = type("Executor", (), {"name": case.pop("executor",

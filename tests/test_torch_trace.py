@@ -3,17 +3,17 @@
 Held: under ``torch.profiler`` a two-batch ``compensate_arr_3D`` shows each
 pipeline span as a host row once a batch (``flowreg3d.read``,
 ``flowreg3d.upload``, ``flowreg3d.staging_copy``, ``flowreg3d.write``;
-``flowreg3d.enqueue`` once more a shard on the resident engine;
-``flowreg3d.output`` once a call) on both engines; every span is a ``cpu_op`` in the Chrome trace, never a
-``user_annotation`` (which the profiler mirrors onto the card as device
-time); without a profiler no span records and the outputs are bit-equal to
-a profiled run's; without ``_RecordFunctionFast`` a span does nothing;
-``_graph.cached`` tallies a capture and its seconds on a miss only, shows it
-as a ``flowreg3d.graph_capture`` row, and ``clear`` keeps the tally; a span
-costs under 2 µs with no profiler. Under ``cc_initialization`` each batch
-opens ``flowreg3d.prealign`` and ``flowreg3d.cc_finalize`` once, each inside
-the batch's ``flowreg3d.enqueue``; without cc neither opens, and without a
-profiler neither records. The card-only checks are in
+``flowreg3d.enqueue`` once more a shard; ``flowreg3d.output`` once a call)
+with the flows from either source; every span is a ``cpu_op`` in the Chrome
+trace, never a ``user_annotation`` (which the profiler mirrors onto the card
+as device time); without a profiler no span records and the outputs are
+bit-equal to a profiled run's; without ``_RecordFunctionFast`` a span does
+nothing; ``_graph.cached`` tallies a capture and its seconds on a miss only,
+shows it as a ``flowreg3d.graph_capture`` row, and ``clear`` keeps the tally;
+a span costs under 2 µs with no profiler. Under ``cc_initialization`` each
+batch opens ``flowreg3d.prealign`` and ``flowreg3d.cc_finalize`` once, each
+inside one of the batch's ``flowreg3d.enqueue``; without cc neither opens,
+and without a profiler neither records. The card-only checks are in
 ``tests/test_torch_cuda.py``.
 """
 
@@ -77,9 +77,9 @@ def test_profiled_run_shows_each_span(engine):
     for name in ("flowreg3d.read", "flowreg3d.upload",
                  "flowreg3d.staging_copy", "flowreg3d.write"):
         assert rows[name] == 2, (name, rows)
-    # the resident engine queues its outputs apart from the batch (one shard
-    # on the CPU); the host-staged path in one range
-    assert rows["flowreg3d.enqueue"] == (4 if engine == "resident" else 2)
+    # the batch step queues each shard's outputs apart from the batch (one
+    # shard on the CPU, from either flow source)
+    assert rows["flowreg3d.enqueue"] == 4
     assert rows["flowreg3d.output"] == 1
     # the CPU staging allocates its buffers in the first batch and never
     # waits on a card
@@ -186,9 +186,9 @@ def _intervals(prof, name):
 def test_cc_batch_opens_its_spans_inside_enqueue():
     _, prof = _profiled(**CC)
     rows = _span_rows(prof)
-    # the default config takes the host-staged path under cc: one enqueue,
+    # under cc the flows come from process_batch, one shard: two enqueues,
     # one prealignment and one re-warp a batch
-    assert rows["flowreg3d.enqueue"] == 2, rows
+    assert rows["flowreg3d.enqueue"] == 4, rows
     enqueues = _intervals(prof, "flowreg3d.enqueue")
     for name in CC_SPANS:
         assert rows[name] == 2, (name, rows)
