@@ -20,6 +20,11 @@ inside itself):
   card) or grown;
 - ``flowreg3d.staging_wait``: the host blocked on the card before a
   download completes;
+- ``flowreg3d.prefault_wait``: frames a counted ``ArrayWriter3D`` is about
+  to take claimed from its page toucher (``io.array.claim_frames``), the
+  host waiting for the chunk it is touching; before the copy into them
+  (``flowreg3d.staging_copy``, or ``write_frames``' inside
+  ``flowreg3d.write``);
 - ``flowreg3d.staging_copy``: the downloaded buffers copied into fresh
   pageable arrays;
 - ``flowreg3d.write``: a batch's outputs handed to the run's writers (in

@@ -38,7 +38,9 @@ registered ``flow_backend`` name instantiated once on the run's device)
 replaces the variational solver there: the executor calls it per frame on
 host numpy arrays and warps the raw frame on the device. ``device=None``
 means 'cuda'. The reader's thread decodes with numpy only; every upload and
-download stays on the calling thread.
+download stays on the calling thread. A download that lands in a writer's
+frames claims them first (``io.array.claim_frames``), so that the writers'
+page toucher has left them.
 """
 
 import os
@@ -53,7 +55,7 @@ import torch
 
 from flowreg3d_tpu_torch._device import resolve_device
 from flowreg3d_tpu_torch._trace import span
-from flowreg3d_tpu_torch.io.array import ArrayWriter3D
+from flowreg3d_tpu_torch.io.array import ArrayWriter3D, claim_frames
 from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.io.factory import get_video_file_writer
 from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
@@ -304,7 +306,8 @@ class BatchMotionCorrector:
             keep_flows_host=self.w_writer is not None,
             update_reference=self.options.update_reference,
             progress_callback=cb, initial_progress_callback=icb,
-            outs=self._landed)
+            outs=self._landed, claim=(self._claim_landed if any(
+                v is not None for v in self._landed) else None))
         if self.w_init is None:
             self.w_init = out["initial_w"]
         if self.options.update_initialization_w:
@@ -331,6 +334,13 @@ class BatchMotionCorrector:
             flows = view(T, frame[:3] + (3,), torch.empty(
                 0, dtype=self.executor.dtype).numpy().dtype)
         return registered, flows
+
+    def _claim_landed(self):
+        """The frames this batch lands in, claimed from the writers'
+        toucher before the first byte is copied in."""
+        claim_frames([(w, v.shape[0]) for w, v in zip(
+            (self.video_writer, self.w_writer), self._landed)
+            if v is not None])
 
     @staticmethod
     def _hand_over(writer, frames, view):

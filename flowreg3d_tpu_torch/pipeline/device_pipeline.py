@@ -24,9 +24,10 @@ copies and one sync a batch, then one copy out of the pinned buffer, so the
 pinned memory never exceeds one batch. That copy lands the registered
 frames and the flows in the caller's arrays where it gives them
 (``run_batch``'s ``outs``: the in-memory writers' next frames, cast to their
-dtype on the way), and everything else in fresh pageable arrays. The full
-flows come down only when asked for (``keep_flows_host``). The CPU path
-never pins.
+dtype on the way, claimed from the writers' toucher by ``run_batch``'s
+``claim`` before the first byte goes in), and everything else in fresh
+pageable arrays. The full flows come down only when asked for
+(``keep_flows_host``). The CPU path never pins.
 
 The flows come as (start, stop, registered, flows) shards from one of two
 sources. Where ``resident_supported`` allows it, the executor's
@@ -164,7 +165,8 @@ class HostStaging:
     whole batch's array or of a writer's, cast to its dtype by the copy);
     the buffers are never handed out. With ``pinned`` (a CUDA device) the
     buffers are page-locked and filled by ``non_blocking`` copies with one
-    sync; the CPU path does not pin.
+    sync; the CPU path does not pin. ``claim``, where given, is called
+    before the copy out of the buffers begins.
     """
 
     def __init__(self, pinned):
@@ -182,13 +184,16 @@ class HostStaging:
                                               pin_memory=self.pinned)
         return self.buffers[i][:nbytes].view(x.dtype).view(x.shape)
 
-    def download(self, tensors, outs=None):
+    def download(self, tensors, outs=None, claim=None):
         staged = [self._slot(i, x) for i, x in enumerate(tensors)]
         for s, x in zip(staged, tensors):
             s.copy_(x, non_blocking=self.pinned)
         if self.pinned:
             with span("flowreg3d.staging_wait"):
                 torch.cuda.current_stream(tensors[0].device).synchronize()
+        if claim is not None:
+            with span("flowreg3d.prefault_wait"):
+                claim()
         with span("flowreg3d.staging_copy"):
             outs = [torch.empty(s.shape, dtype=s.dtype).numpy()
                     if out is None else out
@@ -274,7 +279,8 @@ class ResidentPipeline:
     def run_batch(self, batch, w_init=None, use_w_init=True,
                   want_mask=False, keep_flows_host=False,
                   update_reference=False, progress_callback=None,
-                  initial_progress_callback=None, outs=(None, None)):
+                  initial_progress_callback=None, outs=(None, None),
+                  claim=None):
         """One batch (T,Z,Y,X[,C]) numpy array in its native dtype.
 
         Returns a dict: registered (numpy, input dtype), stats (numpy
@@ -285,6 +291,8 @@ class ResidentPipeline:
         ``outs``: host arrays of the batch's (registered, flows), either
         None, that the downloads fill (each shard its frames), cast to
         their dtypes on the way; given, they are what the dict holds.
+        ``claim``: called once, before the first shard's download copies
+        into them (``io.array.claim_frames`` of the writers they belong to).
         """
         batch = np.asarray(batch)
         if batch.ndim == 4:
@@ -329,7 +337,9 @@ class ResidentPipeline:
                 host = [torch.empty((T,) + tuple(x.shape[1:]),
                                     dtype=x.dtype).numpy() if h is None else h
                         for x, h in zip(want, destinations(len(want), *outs))]
-            self._staging_of(f.device).download(want, [h[a:b] for h in host])
+            self._staging_of(f.device).download(want, [h[a:b] for h in host],
+                                                claim)
+            claim = None        # the first shard claims the whole batch
         del shards, want
         reg, stats_h, valid_h = host[:3]
         return {

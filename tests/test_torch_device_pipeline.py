@@ -206,8 +206,8 @@ def test_downloads_reuse_one_staging_buffer(movie, monkeypatch, config):
     seen = []
     download = HostStaging.download
 
-    def recorded(self, tensors, outs=None):
-        outs = download(self, tensors, outs)
+    def recorded(self, tensors, outs=None, claim=None):
+        outs = download(self, tensors, outs, claim)
         seen.append(([b.data_ptr() for b in self.buffers], outs,
                      [b.numpy() for b in self.buffers]))
         return outs

@@ -22,6 +22,14 @@ package's ``flowreg3d_tpu.io``, on the same seeded numpy frames.
   declines the rest (an integer output from another dtype) and a writer
   told no count; the process tally and the writer's count; past the count,
   or for another volume shape, it raises as ``write_frames`` does;
+- the page toucher of a counted writer: batches claimed before it reached
+  their frames, after it faulted them whole and while it is inside them
+  (its pace set by the test) give ``write_frames``' array bit for bit, for
+  every output type, landed or written; it skips frames claimed ahead of
+  it; ``write_totals()['prefaulted']`` counts only frames it faulted whole
+  before their claim; no toucher thread is left after ``close``, nor after
+  an in-memory run that failed; writers told no count, and arrays of one
+  chunk or less, start none;
 - the device cast of the registered frames (``cast_output``) equals the
   host's (``cast_frames``) bit for bit on float32 frames holding half-way
   values, values out of range on both sides and noise, for every integer
@@ -33,6 +41,7 @@ package's ``flowreg3d_tpu.io``, on the same seeded numpy frames.
 import json
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -49,7 +58,9 @@ import flowreg3d_tpu_torch.io.scanimage as tscan
 from flowreg3d_tpu_torch.io import (ArrayReader3D, ArrayWriter3D,
                                     get_video_file_reader,
                                     get_video_file_writer)
-from flowreg3d_tpu_torch.io.array import cast_frames, write_totals
+from flowreg3d_tpu_torch.io import array
+from flowreg3d_tpu_torch.io.array import (cast_frames, claim_frames,
+                                          write_totals)
 from flowreg3d_tpu_torch.io._tiff_format import TiffWriter
 from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.io.ds import (dataset_name_for_channel,
@@ -453,6 +464,202 @@ def test_array_writer_view_raises_beyond_the_count():
     assert (w.frames_in_place, w.frames_landed) == (3, 3)
     np.testing.assert_array_equal(w.get_array(),
                                   np.concatenate([batches[0], batches[2]]))
+
+
+def _touchers():
+    return [t for t in threading.enumerate()
+            if t.name == array.TOUCHER_NAME]
+
+
+class _GatedToucher:
+    """The page toucher at the test's pace: each chunk waits for a permit
+    (``go``); while it runs, a helper lets go of a chunk that a claim waits
+    for, and only of such a chunk. ``touched`` lists the data address of
+    every chunk touched, in order."""
+
+    def __init__(self, monkeypatch):
+        self.go = threading.Semaphore(0)
+        self.touched = []
+        self._stop = threading.Event()
+        touch = array._touch
+
+        def gated(chunk):
+            assert self.go.acquire(timeout=30)
+            touch(chunk)
+            self.touched.append(chunk.ctypes.data)
+
+        monkeypatch.setattr(array, "_touch", gated)
+        self._helper = threading.Thread(target=self._release_waited)
+        self._helper.start()
+
+    def _release_waited(self):
+        toucher = array._TOUCHER
+        while not self._stop.wait(0.001):
+            with toucher.cond:
+                waited = toucher._touching_claimed()
+            if waited:
+                self.go.release()
+                with toucher.cond:
+                    toucher.cond.wait_for(
+                        lambda: not toucher._touching_claimed(), timeout=30)
+
+    @staticmethod
+    def _until(ready):
+        deadline = time.monotonic() + 30
+        while True:
+            with array._TOUCHER.cond:
+                if ready():
+                    return
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+
+    def run_to(self, writer, frame):
+        """Let the toucher, once it waits at a chunk of ``writer``, fault
+        its frames up to ``frame``; returns once it waits at the next."""
+        toucher = array._TOUCHER
+        self._until(lambda: toucher.busy is writer)
+        self.go.release(frame - writer._touch_at)
+        self._until(lambda: writer._touch_at == frame
+                    and toucher.busy is writer)
+
+    def close(self):
+        self._stop.set()
+        self._helper.join(timeout=30)
+        assert not self._helper.is_alive()
+
+
+@pytest.mark.parametrize("landing", [True, False])
+@pytest.mark.parametrize("src", [np.uint16, np.float32])
+@pytest.mark.parametrize("name", sorted(_DTYPE_MAP))
+def test_toucher_never_writes_into_claimed_frames(monkeypatch, name, src,
+                                                  landing):
+    """A counted writer whose toucher goes at the test's pace (a chunk a
+    frame): batch 0 claimed before the toucher reached its frames, batch 1
+    after it faulted them whole, batch 2 while it is in the frame. The
+    array equals ``write_frames``' bit for bit, the toucher skipped the
+    frames claimed ahead of it, and only batch 1's frames count as
+    prefaulted."""
+    dtype = np.dtype(_DTYPE_MAP[name])
+    batches = _batches(src)
+    monkeypatch.setattr(array, "_CHUNK",
+                        int(np.prod(batches[0].shape[1:])) * dtype.itemsize)
+    gate = _GatedToucher(monkeypatch)
+    w = ArrayWriter3D(frame_count=5, dtype=dtype)
+    before = write_totals()
+    try:
+        for b, frame in zip(batches, (None, 4, None)):
+            if frame is not None:
+                gate.run_to(w, frame)
+            view = w.frames_view(len(b), b.shape[1:], b.dtype) if landing \
+                else None
+            if view is None:
+                w.write_frames(b)
+            else:
+                claim_frames([(w, len(b))])
+                torch.from_numpy(view).copy_(torch.from_numpy(b))
+                w.commit_frames(len(b))
+        got = w.get_array()
+        w.close()
+    finally:
+        gate.close()
+    np.testing.assert_array_equal(got, _concatenated_then_cast(batches,
+                                                               dtype))
+    assert got.dtype == dtype
+    frames = [(a - w.get_array().ctypes.data) // w.get_array()[0].nbytes
+              for a in gate.touched]
+    # frame 0 only where the toucher began it before batch 0's claim;
+    # frame 1 never
+    assert frames in ([0, 2, 3, 4], [2, 3, 4]), frames
+    assert write_totals()["prefaulted"] - before["prefaulted"] == 2
+    assert _touchers() == []
+
+
+def test_prefaulted_counts_frames_touched_whole(monkeypatch):
+    """Frames of two chunks: a frame the toucher is inside when it is
+    claimed does not count, although the claim lets that chunk finish."""
+    batches = _batches(np.float32)
+    frame_bytes = int(np.prod(batches[0].shape[1:])) * 4
+    monkeypatch.setattr(array, "_CHUNK", frame_bytes // 2)
+    gate = _GatedToucher(monkeypatch)
+    w = ArrayWriter3D(frame_count=5, dtype=np.float32)
+    before = write_totals()
+    try:
+        w.write_frames(np.zeros((0,) + batches[0].shape[1:], np.float32))
+        gate.go.release(5)      # frames 0 and 1, and half of frame 2
+        gate._until(lambda: len(gate.touched) == 5
+                    and array._TOUCHER.busy is w)
+        w.write_frames(np.concatenate(batches[:2]))
+        w.write_frames(batches[2])
+        w.close()
+    finally:
+        gate.close()
+    np.testing.assert_array_equal(w.get_array(), np.concatenate(batches))
+    assert write_totals()["prefaulted"] - before["prefaulted"] == 2
+    # in half frames: 0 to 2 whole (2's second half after its claim, which
+    # waited for it), 3 skipped, 4's first half begun before its claim
+    base = w.get_array().ctypes.data
+    assert [(a - base) * 2 // frame_bytes for a in gate.touched] == \
+        [0, 1, 2, 3, 4, 5, 8]
+    assert _touchers() == []
+
+
+def test_toucher_ends_with_close_and_uncounted_writers_start_none(
+        monkeypatch):
+    monkeypatch.setattr(array, "_CHUNK", 64)
+    touch = array._touch
+    monkeypatch.setattr(array, "_touch",
+                        lambda chunk: (time.sleep(0.01), touch(chunk)))
+    batches = _batches(np.uint16)
+    for w in (ArrayWriter3D(), ArrayWriter3D(dtype=np.float64)):
+        for b in batches:
+            w.write_frames(b)
+        assert _touchers() == []
+        w.close()
+    # a counted writer's array no larger than a chunk is faulted by its copy
+    monkeypatch.setattr(array, "_CHUNK", 1 << 20)
+    w = ArrayWriter3D(frame_count=5)
+    w.write_frames(batches[0])
+    assert _touchers() == []
+    monkeypatch.setattr(array, "_CHUNK", 64)
+    w = ArrayWriter3D(frame_count=5, dtype=np.float64)
+    w.write_frames(batches[0])
+    assert len(_touchers()) == 1         # the slowed toucher still runs
+    got = w.get_array()
+    w.close()
+    assert _touchers() == []
+    np.testing.assert_array_equal(got, batches[0].astype(np.float64))
+    w.close()                               # closing again does nothing
+
+
+def test_no_toucher_outlives_a_failed_run(monkeypatch):
+    """An in-memory run that raises in its second batch: its writers are
+    closed, so their toucher ends with the call."""
+    from flowreg3d_tpu_torch.pipeline import OFOptions, compensate_arr_3D
+    from flowreg3d_tpu_torch.pipeline.device_pipeline import ResidentPipeline
+
+    monkeypatch.setattr(array, "_CHUNK", 64)
+    touch = array._touch
+    monkeypatch.setattr(array, "_touch",
+                        lambda chunk: (time.sleep(0.01), touch(chunk)))
+    run_batch = ResidentPipeline.run_batch
+    seen = []
+
+    def failing(self, *a, **kw):
+        seen.append(len(_touchers()))
+        if len(seen) == 2:
+            raise RuntimeError("card lost")
+        return run_batch(self, *a, **kw)
+
+    monkeypatch.setattr(ResidentPipeline, "run_batch", failing)
+    frames = (np.random.default_rng(0).uniform(0, 1, (5, 6, 16, 16, 1))
+              * 1e4).astype(np.uint16)
+    with pytest.raises(RuntimeError, match="card lost"):
+        compensate_arr_3D(frames, frames[:2].mean(axis=0),
+                          OFOptions(alpha=(1.5, 1.5, 1.5), iterations=2,
+                                    levels=2, min_level=1, buffer_size=2,
+                                    quality_setting="fast"), device="cpu")
+    assert seen == [1, 1]       # it ran through both batches' start
+    assert _touchers() == []
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.int16, np.uint16])

@@ -28,10 +28,16 @@ JAX package's, on the CPU.
   counts of the frames that landed, none where the frames' writer declines
   (an integer output from float32 frames), for a file writer or for an
   ``AsyncWriter3D``; the mesh executor's shards landing at their frames of
-  one writer's array.
+  one writer's array, each batch claimed at its first shard;
+- the same with the writers' page toucher on (chunks shrunk to the test's
+  arrays), through both flow sources, landed and written, and over the
+  mesh: bit-equal whether it ran ahead of every claim (then every frame
+  counts as prefaulted) or behind them; no toucher thread left after the
+  call.
 """
 
 import importlib
+import time
 
 import numpy as np
 import pytest
@@ -45,6 +51,7 @@ from flowreg3d_tpu.pipeline import compensate_arr_3D as jax_compensate_3d
 from flowreg3d_tpu.pipeline import flow_statistics as jax_stats
 
 from flowreg3d_tpu_torch.convert import options_from_jax
+from flowreg3d_tpu_torch.io import array
 from flowreg3d_tpu_torch.io.array import ArrayWriter3D, write_totals
 from flowreg3d_tpu_torch.io.async_writer import AsyncWriter3D
 from flowreg3d_tpu_torch.ops import filters as tfilters
@@ -59,7 +66,7 @@ from flowreg3d_tpu_torch.pipeline.device_pipeline import HostStaging
 # the JAX pipeline tests' fixtures, shared so both packages see one case
 from tests.pipeline.conftest import (base_volume, fast_options,  # noqa: F401
                                      video5d)
-from tests.test_torch_io import _concatenated_then_cast
+from tests.test_torch_io import _concatenated_then_cast, _touchers
 
 torch.set_num_threads(1)
 
@@ -441,13 +448,49 @@ def _copied(src, name, config, **kw):
                                  config=config, device="cpu")
 
 
-@pytest.mark.parametrize("engine,case", [
-    (e, c) for e in sorted(ENGINES) for c in LANDING
-    if not (e == "resident" and LANDING[c][2])])    # cc is host-staged
-def test_downloads_land_in_the_returned_arrays(monkeypatch, engine, case):
+def _prefaulting(monkeypatch, toucher):
+    """The writers' page toucher on the test's small arrays (chunks of 4
+    KiB): "ahead", every claim waits until it has faulted every frame of
+    its writers; "behind", it sleeps before each chunk, so claims overtake
+    it and wait for chunks it is inside."""
+    if toucher is None:
+        return
+    monkeypatch.setattr(array, "_CHUNK", 4096)
+    if toucher == "ahead":
+        claim = array._Toucher.claim
+
+        def after_the_toucher(self, claims):
+            with self.cond:
+                assert self.cond.wait_for(lambda: self.thread is None,
+                                          timeout=30)
+            claim(self, claims)
+
+        monkeypatch.setattr(array._Toucher, "claim", after_the_toucher)
+    else:
+        touch = array._touch
+        monkeypatch.setattr(array, "_touch",
+                            lambda chunk: (time.sleep(0.02), touch(chunk)))
+
+
+@pytest.mark.parametrize("engine,case,toucher", [
+    pytest.param(e, c, None, id=f"{e}-{c}") for e in sorted(ENGINES)
+    for c in LANDING if not (e == "resident" and LANDING[c][2])
+] + [                                               # cc is host-staged
+    pytest.param(e, c, t, id=f"{e}-{c}-{t}")
+    for e, c in (("resident", "u16-double"), ("host_staged", "u16-double"),
+                 ("host_staged", "f32-uint16"),
+                 ("host_staged", "u16-double-cc"))
+    for t in ("ahead", "behind")])
+def test_downloads_land_in_the_returned_arrays(monkeypatch, engine, case,
+                                               toucher):
+    """Also with the page toucher on, through both flow sources (the
+    resident engine's shards, the host-staged engine's ``process_batch``),
+    landed and written: bit-equal; frames all prefaulted where it ran
+    ahead."""
     src, name, kw, lands = LANDING[case]
     reg0, w0 = _copied(src, name, ENGINES[engine], **kw)
     writers = _recorded_writers(monkeypatch)
+    _prefaulting(monkeypatch, toucher)
     before = write_totals()
     reg, w = compensate_arr_3D(_recording(src), _reference(src),
                                _small_options(output_typename=name, **kw),
@@ -461,28 +504,46 @@ def test_downloads_land_in_the_returned_arrays(monkeypatch, engine, case):
         [(5, n), (5, 5)]
     assert (after["landed"] - before["landed"],
             after["copied"] - before["copied"]) == (5 + n, 5 - n)
+    prefaulted = after["prefaulted"] - before["prefaulted"]
+    if toucher == "ahead":
+        assert prefaulted == 10
+    elif toucher is None:       # arrays of one chunk or less: no toucher
+        assert prefaulted == 0
+    else:
+        assert 0 <= prefaulted <= 10
+    assert _touchers() == []
 
 
-def test_shards_land_at_their_frames(monkeypatch):
+@pytest.mark.parametrize("toucher", [None, "ahead", "behind"])
+def test_shards_land_at_their_frames(monkeypatch, toucher):
     """The mesh executor over two devices: each batch's shards (one frame
-    each) download into their own frames of the writers' arrays."""
+    each) download into their own frames of the writers' arrays, the
+    first shard of a batch claiming the whole batch; bit-equal with the
+    page toucher on."""
     mesh = RegistrationConfig(parallelization="mesh", devices=["cpu"] * 2)
     reg0, w0 = _copied(np.uint16, "double", mesh)
     writers = _recorded_writers(monkeypatch)
-    downloads = []
+    _prefaulting(monkeypatch, toucher)
+    downloads, claims = [], []
     download = HostStaging.download
 
-    def recorded(self, tensors, outs=None):
-        outs = download(self, tensors, outs)
+    def recorded(self, tensors, outs=None, claim=None):
+        outs = download(self, tensors, outs, claim)
         downloads.append(outs)
+        claims.append(claim is not None)
         return outs
 
     monkeypatch.setattr(HostStaging, "download", recorded)
+    before = write_totals()
     reg, w = compensate_arr_3D(_recording(np.uint16), _reference(np.uint16),
                                _small_options(), config=mesh, device="cpu")
+    prefaulted = write_totals()["prefaulted"] - before["prefaulted"]
     np.testing.assert_array_equal(reg, reg0)
     np.testing.assert_array_equal(w, w0)
     assert len(downloads) == 5      # batches of 2, 2 and 1 frames
+    assert claims == [True, False, True, False, True]
+    assert prefaulted == {None: 0, "ahead": 10}.get(toucher, prefaulted)
+    assert _touchers() == []
 
     def frame_of(out, array):
         assert np.shares_memory(out, array)

@@ -2,8 +2,9 @@
 
 Held: under ``torch.profiler`` a two-batch ``compensate_arr_3D`` shows each
 pipeline span as a host row once a batch (``flowreg3d.read``,
-``flowreg3d.upload``, ``flowreg3d.staging_copy``, ``flowreg3d.write``;
-``flowreg3d.enqueue`` once more a shard; ``flowreg3d.output`` once a call)
+``flowreg3d.upload``, ``flowreg3d.staging_copy``, ``flowreg3d.write``,
+``flowreg3d.prefault_wait``; ``flowreg3d.enqueue`` once more a shard;
+``flowreg3d.output`` once a call)
 with the flows from either source; every span is a ``cpu_op`` in the Chrome
 trace, never a ``user_annotation`` (which the profiler mirrors onto the card
 as device time); without a profiler no span records and the outputs are
@@ -13,7 +14,9 @@ shows it as a ``flowreg3d.graph_capture`` row, and ``clear`` keeps the tally;
 a span costs under 2 µs with no profiler. Under ``cc_initialization`` each
 batch opens ``flowreg3d.prealign`` and ``flowreg3d.cc_finalize`` once, each
 inside one of the batch's ``flowreg3d.enqueue``; without cc neither opens,
-and without a profiler neither records. The card-only checks are in
+and without a profiler neither records. With the writers' page toucher
+on, a batch's ``flowreg3d.prefault_wait`` closes before its
+``flowreg3d.staging_copy`` opens. The card-only checks are in
 ``tests/test_torch_cuda.py``.
 """
 
@@ -30,7 +33,8 @@ from flowreg3d_tpu_torch.pipeline import (OFOptions, RegistrationConfig,
                                           compensate_arr_3D)
 
 IN_RUN = ("flowreg3d.read", "flowreg3d.upload", "flowreg3d.enqueue",
-          "flowreg3d.staging_copy", "flowreg3d.write")
+          "flowreg3d.staging_copy", "flowreg3d.write",
+          "flowreg3d.prefault_wait")
 ENGINES = {
     "resident": None,
     "host_staged": RegistrationConfig(parallelization="sequential",
@@ -75,7 +79,8 @@ def test_profiled_run_shows_each_span(engine):
     _, prof = _profiled(ENGINES[engine])
     rows = _span_rows(prof)
     for name in ("flowreg3d.read", "flowreg3d.upload",
-                 "flowreg3d.staging_copy", "flowreg3d.write"):
+                 "flowreg3d.staging_copy", "flowreg3d.write",
+                 "flowreg3d.prefault_wait"):
         assert rows[name] == 2, (name, rows)
     # the batch step queues each shard's outputs apart from the batch (one
     # shard on the CPU, from either flow source)
@@ -197,6 +202,24 @@ def test_cc_batch_opens_its_spans_inside_enqueue():
                    for s, t in spans), (name, spans, enqueues)
         # no span of a name opens inside another of the same name
         assert all(t1 <= s2 for (_, t1), (s2, _) in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_prefault_wait_opens_before_the_staging_copy(monkeypatch, engine):
+    """With the writers' page toucher on (chunks shrunk to the test's
+    arrays), each batch claims its landed frames once, in a
+    ``flowreg3d.prefault_wait`` that closes before the batch's
+    ``flowreg3d.staging_copy`` opens, never inside it."""
+    from flowreg3d_tpu_torch.io import array
+
+    monkeypatch.setattr(array, "_CHUNK", 4096)
+    _, prof = _profiled(ENGINES[engine])
+    waits = _intervals(prof, "flowreg3d.prefault_wait")
+    copies = _intervals(prof, "flowreg3d.staging_copy")
+    assert len(waits) == len(copies) == 2
+    for (s, t), (a, b) in zip(waits, copies):
+        assert t <= a
+    assert not any(a <= s and t <= b for s, t in waits for a, b in copies)
 
 
 def test_cc_spans_absent_without_cc():
