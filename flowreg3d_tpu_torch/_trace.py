@@ -36,7 +36,22 @@ inside itself):
   graph replay a frame on a card), inside ``flowreg3d.enqueue``;
 - ``flowreg3d.cc_finalize``: under ``cc_initialization``, the rigid flow
   added to the residual flows and the raw frames warped again
-  (``BaseExecutor3D._finalize_cc``), inside ``flowreg3d.enqueue``.
+  (``BaseExecutor3D._finalize_cc``), inside ``flowreg3d.enqueue``;
+- ``flowreg3d.reference``: the run's reference set up
+  (``BatchMotionCorrector._setup_reference``: read from the reader where
+  given as frame indices, preprocessed and uploaded);
+- ``flowreg3d.flush``: the end of a run: the metadata files written and
+  the streams closed, where the call waits for the writer's thread to drain
+  and a TIFF writer writes its IFDs;
+- ``flowreg3d.decode``: a TIFF reader's volumes decoded
+  (``TIFFFileReader3D._read_raw_frames``);
+- ``flowreg3d.encode``: a TIFF writer's volumes encoded
+  (``TIFFFileWriter3D.write_frames``).
+
+A range opens only on the thread that started the profiler: under the
+read-ahead reader and the async writer, ``flowreg3d.decode`` and
+``flowreg3d.encode`` run on their threads and record nothing there, so
+``io.tiff3d.tiff_totals()`` counts their volumes and seconds on any thread.
 """
 
 import contextlib

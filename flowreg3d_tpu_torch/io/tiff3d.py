@@ -5,18 +5,52 @@ Parity target: reference util/io/tiff_3d.py — reader with arbitrary
 implicit-channel handling (:24-201); streaming writer emitting ImageJ
 hyperstack metadata with page order T→Z→C (C fastest), BigTIFF by default
 (:204-451). Uses flowreg3d_tpu_torch.io._tiff_format instead of tifffile.
+
+A reader's decode (``_read_raw_frames``) opens the span ``flowreg3d.decode``
+and a writer's encode (``write_frames``) ``flowreg3d.encode``; both usually run
+on the read-ahead and writer threads, where a profiler started on the calling
+thread records no range. So ``tiff_totals()`` also counts the volumes, bytes
+and host seconds each took over the process, on whichever thread it ran.
 """
 
 import os
+import threading
+from time import perf_counter
 
 import numpy as np
 
+from flowreg3d_tpu_torch._trace import span
 from flowreg3d_tpu_torch.io._tiff_format import (
     TiffReader,
     TiffWriter,
     build_imagej_description,
 )
 from flowreg3d_tpu_torch.io.base import VideoReader3D, VideoWriter3D
+
+# volumes, bytes and host seconds the process's TIFF readers decoded and its
+# writers encoded, on any thread
+_TOTALS = dict.fromkeys(("decoded_frames", "decoded_bytes", "decode_s",
+                         "encoded_frames", "encoded_bytes", "encode_s"), 0)
+_TOTALS_LOCK = threading.Lock()
+
+
+def tiff_totals():
+    """{'decoded_frames', 'decoded_bytes', 'decode_s', 'encoded_frames',
+    'encoded_bytes', 'encode_s'}: the volumes (T entries), their bytes and
+    the host seconds that every ``TIFFFileReader3D._read_raw_frames`` and
+    ``TIFFFileWriter3D.write_frames`` of the process took."""
+    with _TOTALS_LOCK:
+        return dict(_TOTALS)
+
+
+def _tally(kind, frames, t0):
+    """Add a decode's or an encode's (T,Z,Y,X,C) ``frames`` and its seconds
+    since ``t0`` to the process's totals."""
+    seconds = perf_counter() - t0
+    with _TOTALS_LOCK:
+        _TOTALS[f"{kind}d_frames"] += frames.shape[0]
+        _TOTALS[f"{kind}d_bytes"] += frames.nbytes
+        _TOTALS[f"{kind}_s"] += seconds
 
 
 class TIFFFileReader3D(VideoReader3D):
@@ -124,6 +158,13 @@ class TIFFFileReader3D(VideoReader3D):
         self.dtype = self._data.dtype
 
     def _read_raw_frames(self, frame_indices):
+        t0 = perf_counter()
+        with span("flowreg3d.decode"):
+            out = self._decode(frame_indices)
+        _tally("decode", out, t0)
+        return out
+
+    def _decode(self, frame_indices):
         if self._data is not None:
             out = self._data[frame_indices]
             # always a FRESH array: slice views would be read-only for
@@ -176,6 +217,14 @@ class TIFFFileWriter3D(VideoWriter3D):
         os.makedirs(d, exist_ok=True)
 
     def write_frames(self, frames):
+        t0 = perf_counter()
+        with span("flowreg3d.encode"):
+            frames = self._encode(frames)
+        _tally("encode", frames, t0)
+
+    def _encode(self, frames):
+        """Append the pages of (T,Z,Y,X,C) or (Z,Y,X,C) ``frames``; returns
+        them as a batch."""
         frames = self._as_batch(np.asarray(frames))
         if frames.ndim != 5:
             raise ValueError(f"Expected 4D or 5D array, got {frames.ndim}D")
@@ -191,6 +240,7 @@ class TIFFFileWriter3D(VideoWriter3D):
                 for c in range(C):
                     self._writer.write_page(frames[t, z, :, :, c])
         self.frames_written += T
+        return frames
 
     def close(self):
         if self._writer is not None:

@@ -372,7 +372,8 @@ class BatchMotionCorrector:
 
     def _run(self, reference_frame=None):
         self._setup_io()
-        self._setup_reference(reference_frame)
+        with span("flowreg3d.reference"):
+            self._setup_reference(reference_frame)
         self._total_frames = len(self.video_reader)
         frames_done = self._resume()
         self._setup_resident()
@@ -431,8 +432,9 @@ class BatchMotionCorrector:
             dt = time() - start_time
             print(f"Processed {total_frames} frames in {dt:.2f}s "
                   f"(avg {total_frames / max(dt, 1e-6):.1f} fps)")
-        self._save_metadata()
-        self._cleanup()
+        with span("flowreg3d.flush"):
+            self._save_metadata()
+            self._cleanup()
         return self.reference_raw
 
     # -- checkpoint / resume ------------------------------------------------

@@ -35,7 +35,10 @@ package's ``flowreg3d_tpu.io``, on the same seeded numpy frames.
   values, values out of range on both sides and noise, for every integer
   type the device casts to;
 - h5py imported only where HDF5 or MAT v7.3 is asked for, and its absence
-  raised as an ImportError naming it.
+  raised as an ImportError naming it;
+- ``tiff_totals()`` counts the volumes and bytes a TIFF writer encoded and
+  a reader decoded exactly, and their seconds grow, also where the async
+  writer's and the read-ahead reader's threads did the work.
 """
 
 import json
@@ -68,6 +71,7 @@ from flowreg3d_tpu_torch.io.ds import (dataset_name_for_channel,
 from flowreg3d_tpu_torch.io.multifile import (MULTICHANNELFileReader3D,
                                               SUBSETFileReader3D)
 from flowreg3d_tpu_torch.io.prefetch import PrefetchReader3D
+from flowreg3d_tpu_torch.io.tiff3d import tiff_totals
 from flowreg3d_tpu_torch.pipeline.compensate_arr import _DTYPE_MAP
 from flowreg3d_tpu_torch.pipeline.device_pipeline import cast_output
 
@@ -678,3 +682,43 @@ def test_cast_output_equals_cast_frames(dtype):
     want = cast_frames(x, np.dtype(dtype))
     assert got.dtype == want.dtype == dtype
     np.testing.assert_array_equal(got, want)
+
+
+def _totals_added(before):
+    after = tiff_totals()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("threads", [False, True])
+def test_tiff_totals_count_reads_and_writes(tmp_path, video, threads):
+    """A write of 7 volumes in two batches and a stream of them in batches
+    of 3 (``threads``: through the async writer and the read-ahead reader,
+    whose threads do the work), then one more volume read by index."""
+    path = tmp_path / "v.tif"
+    before = tiff_totals()
+    w = get_video_file_writer(str(path), "TIFF")
+    if threads:
+        w = AsyncWriter3D(w)
+    w.write_frames(video[:4])
+    w.write_frames(video[4:])
+    w.close()
+    added = _totals_added(before)
+    assert (added["encoded_frames"], added["encoded_bytes"]) == (
+        7, video.nbytes)
+    assert added["encode_s"] > 0
+    assert added["decoded_frames"] == added["decoded_bytes"] == 0
+
+    before = tiff_totals()
+    r = get_video_file_reader(str(path), buffer_size=3)
+    if threads:
+        r = PrefetchReader3D(r, prefetch_depth=2)
+    got = [r.read_batch() for _ in range(3)]
+    assert r.read_batch() is None
+    np.testing.assert_array_equal(r[[5]], video[5:6])
+    r.close()
+    np.testing.assert_array_equal(np.concatenate(got), video)
+    added = _totals_added(before)
+    assert (added["decoded_frames"], added["decoded_bytes"]) == (
+        8, video.nbytes + video[5].nbytes)
+    assert added["decode_s"] > 0
+    assert added["encoded_frames"] == added["encode_s"] == 0

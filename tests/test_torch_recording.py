@@ -18,6 +18,13 @@ JAX package's on the CPU, on a TIFF of the pipeline fixture's recording
   naming convention gets is the JAX package's.
 - Without h5py, the flow and mask writers warn and are skipped, and HDF5
   output raises an ImportError that names h5py.
+- A u16 two-channel TIFF at the TIFF recording deployment's I/O options
+  (TIFF out, the reference the mean of frames 0-19 by index, ``save_w``
+  off, the metadata files on), two batches: the same files as the JAX
+  package's, the reference equal (and the float64 mean of the frames it
+  names), ``statistics.npz`` within 1e-3, the registered frames within one
+  count (the float values agree within the float test's tolerance, so a
+  value near a half rounds either way) on at most 1% of the voxels.
 """
 
 import sys
@@ -319,3 +326,42 @@ def test_u16_recording_written_in_its_dtype(tmp_path, video5d, base_volume):
         fast_options(a_smooth=0.5)), device="cpu")
     np.testing.assert_array_equal(outs[0], reg.astype(np.uint16))
     assert np.array_equal(jax_reader(str(src))[:], frames)
+
+
+def test_u16_two_channel_file_deployment_matches_jax(tmp_path, video5d):
+    frames = np.rint(np.concatenate([video5d * 30000 + 1000,
+                                     (1 - video5d) * 20000], axis=-1)
+                     ).astype(np.uint16)
+    src = tmp_path / "rec.tif"
+    w = TIFFFileWriter3D(str(src))
+    w.write_frames(frames)
+    w.close()
+
+    def opts(out):
+        return fast_options(
+            a_smooth=0.5, input_file=str(src), output_path=out,
+            output_format="TIFF", reference_frames=list(range(20)),
+            save_w=False, save_meta_info=True, buffer_size=2,
+            weight=[0.5, 0.5], sigma=[[1.0, 1.0, 1.0, 0.1]] * 2)
+
+    jax_recording(opts(tmp_path / "jax"), config=JAX_CONFIG)
+    ref = compensate_recording(options_from_jax(opts(tmp_path / "torch")),
+                               device="cpu")
+    got, want = tmp_path / "torch", tmp_path / "jax"
+    assert sorted(p.name for p in got.iterdir()) == \
+        sorted(p.name for p in want.iterdir()) == \
+        ["compensated.TIFF", "reference_frame.npy", "statistics.npz"]
+    np.testing.assert_array_equal(ref, frames.astype(np.float64).mean(0))
+    np.testing.assert_array_equal(np.load(got / "reference_frame.npy"),
+                                  np.load(want / "reference_frame.npy"))
+    stats, stats_j = np.load(got / "statistics.npz"), np.load(
+        want / "statistics.npz")
+    for key in stats_j:
+        np.testing.assert_allclose(stats[key], stats_j[key], rtol=0,
+                                   atol=1e-3, err_msg=key)
+    reg, reg_j = _read(got / "compensated.TIFF"), _read(
+        want / "compensated.TIFF")
+    assert reg.dtype == reg_j.dtype == np.uint16
+    assert reg.shape == reg_j.shape == frames.shape
+    diff = np.abs(reg.astype(np.int64) - reg_j.astype(np.int64))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01

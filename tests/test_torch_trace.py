@@ -16,8 +16,13 @@ batch opens ``flowreg3d.prealign`` and ``flowreg3d.cc_finalize`` once, each
 inside one of the batch's ``flowreg3d.enqueue``; without cc neither opens,
 and without a profiler neither records. With the writers' page toucher
 on, a batch's ``flowreg3d.prefault_wait`` closes before its
-``flowreg3d.staging_copy`` opens. The card-only checks are in
-``tests/test_torch_cuda.py``.
+``flowreg3d.staging_copy`` opens. A profiled ``compensate_recording`` over
+a TIFF opens ``flowreg3d.reference`` and ``flowreg3d.flush`` once a call,
+``flowreg3d.decode`` once a reference frame and, with the reader's and the
+writer's threads off, ``flowreg3d.decode`` and ``flowreg3d.encode`` once a
+batch; with them on, the threads' decodes and encodes record no range and
+``tiff_totals()`` counts them; unprofiled, none records. The card-only
+checks are in ``tests/test_torch_cuda.py``.
 """
 
 import json
@@ -29,8 +34,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from flowreg3d_tpu_torch import _graph, _trace
+from flowreg3d_tpu_torch.io.tiff3d import TIFFFileWriter3D, tiff_totals
 from flowreg3d_tpu_torch.pipeline import (OFOptions, RegistrationConfig,
-                                          compensate_arr_3D)
+                                          compensate_arr_3D,
+                                          compensate_recording)
 
 IN_RUN = ("flowreg3d.read", "flowreg3d.upload", "flowreg3d.enqueue",
           "flowreg3d.staging_copy", "flowreg3d.write",
@@ -233,3 +240,67 @@ def test_cc_spans_record_nothing_unprofiled(monkeypatch):
     assert opened == []
     _profiled(**CC)
     assert set(opened) >= set(CC_SPANS)
+
+
+FILE_SPANS = ("flowreg3d.reference", "flowreg3d.flush", "flowreg3d.decode",
+              "flowreg3d.encode")
+
+
+def _source(tmp_path):
+    """A u16 TIFF of ``_movie()``'s four volumes."""
+    src = tmp_path / "rec.tif"
+    w = TIFFFileWriter3D(str(src))
+    w.write_frames(_movie()[..., None])
+    w.close()
+    return src
+
+
+def _recording(src, out, threads):
+    """A two-batch ``compensate_recording`` (buffer 2, reference the mean
+    of frames 0 and 1) of ``src`` to a TIFF in ``out`` on the CPU;
+    ``threads``: the read-ahead reader and the async writer (the default
+    config's) or neither."""
+    opts = OFOptions(input_file=str(src), output_path=out,
+                     output_format="TIFF", reference_frames=[0, 1],
+                     alpha=(1.5, 1.5, 1.5), iterations=4, levels=3,
+                     min_level=1, buffer_size=2, quality_setting="fast")
+    config = RegistrationConfig(prefetch=2 if threads else 0,
+                                async_write=threads)
+    return compensate_recording(opts, config=config, device="cpu")
+
+
+@pytest.mark.parametrize("threads", [False, True])
+def test_file_run_opens_the_io_spans(tmp_path, threads):
+    src = _source(tmp_path)
+    before = tiff_totals()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _recording(src, tmp_path / "out", threads)
+    rows = _span_rows(prof)
+    assert rows["flowreg3d.reference"] == rows["flowreg3d.flush"] == 1
+    # the two reference frames are read by index on the calling thread
+    if threads:
+        assert rows["flowreg3d.decode"] == 2, rows
+        assert "flowreg3d.encode" not in rows
+    else:
+        assert rows["flowreg3d.decode"] == 2 + 2, rows
+        assert rows["flowreg3d.encode"] == 2, rows
+    after = tiff_totals()
+    assert after["decoded_frames"] - before["decoded_frames"] == 2 + 4
+    assert after["encoded_frames"] - before["encoded_frames"] == 4
+    reference = _intervals(prof, "flowreg3d.reference")[0]
+    flush = _intervals(prof, "flowreg3d.flush")[0]
+    assert reference[1] <= min(s for s, _ in _intervals(
+        prof, "flowreg3d.read")) and flush[0] >= max(
+        t for _, t in _intervals(prof, "flowreg3d.write"))
+    assert all(reference[0] <= s and t <= reference[1]
+               for s, t in _intervals(prof, "flowreg3d.decode")[:2])
+
+
+def test_file_run_unprofiled_records_nothing(tmp_path, monkeypatch):
+    src = _source(tmp_path)
+    opened = _count_spans(monkeypatch)
+    _recording(src, tmp_path / "plain", threads=False)
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        _recording(src, tmp_path / "traced", threads=False)
+    assert set(opened) >= set(FILE_SPANS)
